@@ -3,15 +3,21 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written Hopper kernels from ``sparse_solvers_tpu_torch/
-csrc`` with nvcc, holds each against its plain PyTorch twin on the card at
-the shapes of the main path, then drives the main path — a batched
-``Homotopy`` at precision "certified" on a 4096x8192 f32 sensing matrix,
-k=64-sparse signals, batch 256, tol 1e-2, k_max 96, 128 iterations (the
-workload of ``bench.py``) — and checks that every lane is certified,
-recovers its true support, and went through all three kernels. Ends with a
-small cross-device check of the port on the card against the port on the
-CPU. Any failed check raises, so the script exits non-zero and never prints
-its last line. Needs one CUDA card; imports nothing of JAX.
+csrc`` with nvcc and holds each against its plain PyTorch twin on the card
+at the shapes of the main paths (K3 also at K=200, past a block's shared
+memory). Then it drives the three main paths on a 4096x8192 f32 sensing
+matrix with k=64-sparse signals, batch 256, tol 1e-2, each at precision
+"certified":
+
+  * ``Homotopy``, k_max 96, 128 iterations (the workload of ``bench.py``);
+  * ``Omp``, max_iterations 72, so k_max 72 (``benchmarks/bench_omp.py``);
+  * ``Omp(picks=4)`` (gOMP), max_iterations 128, on the same problem;
+
+and checks that every lane is certified, recovers its true support, and
+went through the kernels of its path (Homotopy K1, K2, K3; OMP K1, K4).
+Ends with small cross-device checks of the port on the card against the
+port on the CPU. Any failed check raises, so the script exits non-zero and
+never prints its last line. Needs one CUDA card; imports nothing of JAX.
 
 Output: phases on earlier lines, then one JSON line of per-kernel results,
 then ``{"ok": true, "device": {...}}`` as the last line.
@@ -24,11 +30,21 @@ import subprocess
 import sys
 import time
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
+# the seeded numpy cases the card tests use (numpy only, no jax)
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from _torch_cases import omp_insert_case, transition_mix  # noqa: E402
+
 M, N, K_SPARSE, BATCH = 4096, 8192, 64, 256
 TOL, K_MAX, MAX_ITER = 1e-2, 96, 128
+OMP_MAX_ITER, GOMP_MAX_ITER, GOMP_PICKS = 72, 128, 4
+HOMOTOPY_KERNELS = ("normal_matvec_fused_bf16", "find_max_gamma_fused",
+                    "transition")
+OMP_KERNELS = ("normal_matvec_fused_bf16", "omp_insert")
 
 
 def phase(msg: str) -> None:
@@ -42,7 +58,10 @@ def check(cond: bool, msg: str) -> None:
 
 def time_ms(fn, prepare=None, reps: int = 20, warmup: int = 3) -> float:
     """Median device time of one ``fn()`` call, from CUDA events around
-    each call; ``prepare()`` (untimed) runs before every call."""
+    each call; ``prepare()`` (untimed) runs before every call. A spin
+    kernel of a few ms is queued ahead of each timed call, so the host has
+    queued the call and its closing event before the card reaches them:
+    the events then time the device work, not the Python launch path."""
     for _ in range(warmup):
         if prepare:
             prepare()
@@ -53,6 +72,7 @@ def time_ms(fn, prepare=None, reps: int = 20, warmup: int = 3) -> float:
             prepare()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10_000_000)
         e0.record()
         fn()
         e1.record()
@@ -138,65 +158,11 @@ def check_k2(dev, card):
     return err, ms, plain
 
 
-def k3_inputs(b, K, n, rows=128, seed=3):
-    """Valid active-set states (random SPD Grams) with insert lanes,
-    removals at p != last and p == last, frozen lanes and a degenerate
-    insert — the mix of tests/test_transition_kernel.py at K=96."""
-    rng = np.random.RandomState(seed)
-    inv = np.zeros((b, K, K), np.float32)
-    gk = np.zeros((b, K, K), np.float32)
-    ind = np.full((b, K), n, np.int32)
-    xa, da, ca, u1 = (np.zeros((b, K), np.float32) for _ in range(4))
-    kk = np.zeros(b, np.int32)
-    idx = np.zeros(b, np.int32)
-    vtv = np.zeros(b, np.float32)
-    live = np.ones(b, bool)
-    pres = np.zeros(b, bool)
-    for lane in range(b):
-        k = rng.randint(2, K - 1)
-        cols = rng.choice(n, k + 1, replace=False)
-        Ag = rng.randn(rows, k + 1) / np.sqrt(rows)
-        g = Ag.T @ Ag
-        inv[lane, :k, :k] = np.linalg.inv(g[:k, :k])
-        gk[lane, :k, :k] = g[:k, :k]
-        ind[lane, :k] = cols[:k]
-        xa[lane, :k] = rng.randn(k)
-        da[lane, :k] = rng.randn(k)
-        ca[lane, :k] = rng.randn(k)
-        kk[lane] = k
-        kind = lane % 4
-        if kind == 0 or kind == 2:              # remove at p != l / p == l
-            pres[lane] = True
-            idx[lane] = ind[lane, k - 1 if kind == 2 else rng.randint(k - 1)]
-        else:                                   # insert column cols[k]
-            idx[lane] = cols[k]
-            u1[lane, :k] = g[k, :k]
-            vtv[lane] = g[k, k]
-            live[lane] = kind == 1 or lane % 8 == 3   # half of kind 3 frozen
-    # degenerate insert: orthonormal active columns, inserted column equal
-    # to active column 0 -> den = 1 - 1 = 0 exactly
-    d = 5
-    inv[d], gk[d] = 0, 0
-    inv[d, 0, 0] = inv[d, 1, 1] = gk[d, 0, 0] = gk[d, 1, 1] = 1.0
-    ind[d] = n
-    ind[d, :2] = (0, 1)
-    xa[d], da[d], ca[d], u1[d] = 0, 0, 0, 0
-    xa[d, 0], da[d, 0], ca[d, 0], u1[d, 0] = 0.5, 1.0, 0.3, 1.0
-    kk[d], idx[d], vtv[d], live[d], pres[d] = 2, 5, 1.0, True, False
-    gamma = (rng.rand(b) * 0.1).astype(np.float32)
-    cnew = rng.randn(b).astype(np.float32)
-    doins = live & ~pres & (kk < K)
-    dorm = live & pres
-    return (inv, gk, xa, da, ca, ind, u1, idx, kk, gamma, vtv, cnew, live,
-            doins, dorm)
-
-
-def check_k3(dev, card):
+def check_k3(dev, card, K):
     from sparse_solvers_tpu_torch.ops.cuda import transition as K3
-    b, K, n = BATCH, K_MAX, N
+    b, n = BATCH, N
     tol = 0.01
-    host = k3_inputs(b, K, n)
-    base = [torch.from_numpy(a).to(dev) for a in host]
+    base = [torch.from_numpy(a).to(dev) for a in transition_mix(b, K, n)]
     work = [t.clone() for t in base]
     deg = K3.transition(*work, tol, n)
     ref = K3.transition_plain(*base, tol, n)
@@ -204,12 +170,12 @@ def check_k3(dev, card):
     live = base[12]
     check(torch.equal(work[5], ref[5]), "K3: indices differ from the twin")
     check(torch.equal(deg, ref[6]), "K3: deg differs from the twin")
-    check(bool(deg[5]) and int(deg.sum()) == 1,
+    check(bool(deg[1]) and int(deg.sum()) == 1,
           "K3: exactly the planted degenerate insert must flag deg")
     for t, t0 in zip(work[:6], base[:6]):
         check(torch.equal(t[~live], t0[~live]),
               "K3: frozen lanes not bit-identical")
-        check(torch.equal(t[5], t0[5]),
+        check(torch.equal(t[1], t0[1]),
               "K3: degenerate lane not left untouched")
     err = 0.0
     for name, got, want in zip(("inv", "gk", "x_act", "d_act", "c_act"),
@@ -228,10 +194,43 @@ def check_k3(dev, card):
     plain = time_ms(lambda: K3.transition_plain(*base, tol, n))
     counts = {"insert": int(base[13].sum()), "remove": int(base[14].sum()),
               "frozen": int((~live).sum()), "degenerate": int(deg.sum())}
-    phase(f"K3 transition b={b} K={K}: indices and deg exact, frozen lanes "
+    where = ("shared memory" if K3.fits_shared_memory(K, dev)
+             else "device memory, in place")
+    phase(f"K3 transition b={b} K={K} (inv and gk in {where}): indices and "
+          f"deg exact, frozen lanes bit-identical, floats within 1e-5 "
+          f"relative (max|err| {err:.3e}); lanes {counts}; kernel "
+          f"{ms:.4f} ms, twin {plain:.4f} ms [{card}]")
+    return err, ms, plain
+
+
+def check_k4(dev, card, K):
+    from sparse_solvers_tpu_torch.ops.cuda import omp_insert as K4
+    b = BATCH
+    base = [torch.from_numpy(a).to(dev) for a in omp_insert_case(b, K)]
+    inv = base[0].clone()
+    coef, deg = K4.omp_insert(inv, *base[1:])
+    inv_p, coef_p, deg_p = K4.omp_insert_plain(*base)
+    torch.cuda.synchronize()
+    check(torch.equal(deg, deg_p), "K4: deg differs from the twin")
+    check(bool(deg[1]) and int(deg.sum()) == 1,
+          "K4: exactly the planted degenerate insert must flag deg")
+    gated = base[5] & ~deg
+    check(torch.equal(inv[~gated], base[0][~gated]),
+          "K4: lanes that are not gated must keep their inverse bit for bit")
+    err = 0.0
+    for name, got, want in (("inv", inv, inv_p), ("coef", coef, coef_p)):
+        e = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        check(e <= 1e-5 * scale, f"K4: {name} max |err| {e} > 1e-5 * {scale}")
+        err = max(err, e)
+    ms = time_ms(lambda: K4.omp_insert(inv, *base[1:]),
+                 prepare=lambda: inv.copy_(base[0]))
+    plain = time_ms(lambda: K4.omp_insert_plain(*base))
+    phase(f"K4 omp_insert b={b} K={K}: deg exact, lanes not gated "
           f"bit-identical, floats within 1e-5 relative (max|err| "
-          f"{err:.3e}); lanes {counts}; kernel {ms:.4f} ms, twin "
-          f"{plain:.4f} ms [{card}]")
+          f"{err:.3e}); lanes gated {int(gated.sum())}, frozen "
+          f"{int((~base[5]).sum())}, degenerate {int(deg.sum())}; kernel "
+          f"{ms:.4f} ms, twin {plain:.4f} ms [{card}]")
     return err, ms, plain
 
 
@@ -247,91 +246,174 @@ def true_supports():
     return sups
 
 
-def time_main_path(solver, Y, dev, card, runs: int = 10):
+def time_path(name, solver, Y, dev, card, max_iter, runs: int = 10):
     """Wall time of ``solve_batch_on_device`` per batch, each run fenced
-    by ``torch.cuda.synchronize()``, after one warm-up."""
+    by ``torch.cuda.synchronize()``, after one warm-up; counts the lanes
+    whose certificate misses the tolerance (``solve_batch`` re-solves
+    them)."""
     Yd = torch.from_numpy(Y).to(dev)
-    solver.solve_batch_on_device(Yd, TOL, MAX_ITER)
+    solver.solve_batch_on_device(Yd, TOL, max_iter)
     torch.cuda.synchronize()
     times, resolve = [], 0
     for _ in range(runs):
         t0 = time.perf_counter()
-        _, r = solver.solve_batch_on_device(Yd, TOL, MAX_ITER)
+        _, r = solver.solve_batch_on_device(Yd, TOL, max_iter)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         e = r.solution_error.cpu().numpy()
         resolve += int(((~(e <= TOL)) & (r.iter.cpu().numpy()
-                                         < MAX_ITER)).sum())
+                                         < max_iter)).sum())
     q1, dt, q3 = np.percentile(times, [25, 50, 75])
-    phase(f"main path timing (solve_batch_on_device, {runs} fenced runs): "
+    phase(f"{name} timing (solve_batch_on_device, {runs} fenced runs): "
           f"median {dt * 1e3:.3f} ms/batch (quartiles {q1 * 1e3:.3f}, "
-          f"{q3 * 1e3:.3f}), {BATCH / dt:.1f} solves/s, path iterations "
+          f"{q3 * 1e3:.3f}), {BATCH / dt:.1f} solves/s, iterations max "
           f"{int(r.iter.max())}, lanes needing the re-solve {resolve} of "
           f"{runs * BATCH} [{card}]")
+
+
+def run_path(name, solver, Y, dev, card, max_iter, kernels):
+    """One ``solve_batch`` with the launch counts set to 0 just before and
+    read just after; fails unless each of ``kernels`` launched and no
+    other kernel did. Then the timed runs."""
+    from sparse_solvers_tpu_torch.ops import dispatch
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    X, rep = solver.solve_batch(Y, TOL, max_iter)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches = dict(dispatch.launches)
+    phase(f"{name}: solve_batch {M}x{N} k={K_SPARSE} batch={BATCH} "
+          f"tol={TOL} max_iter={max_iter} certified: first call "
+          f"{first:.3f} s (Gram included); launches {launches}")
+    for kname, count in launches.items():
+        if kname in kernels:
+            check(count > 0, f"{name} never launched kernel {kname}")
+        else:
+            check(count == 0, f"{name} launched {kname}, not on its path")
+    # timed before the host-side checks below, whose multi-threaded numpy
+    # BLAS would compete for the cores that launch the solver's kernels
+    time_path(name, solver, Y, dev, card, max_iter)
+    Xh = X.cpu().numpy()
+    errs = rep.solution_error.cpu().numpy()
+    iters = rep.iter.cpu().numpy()
+    check(np.isfinite(Xh).all(), f"{name}: non-finite solution")
+    check(bool((errs <= TOL).all()),
+          f"{name}: {int((~(errs <= TOL)).sum())} lanes above tol")
+    return Xh, errs, iters, launches
+
+
+def check_supports(name, Xh, sups):
+    top = np.argsort(-np.abs(Xh), axis=1)[:, :K_SPARSE]
+    wrong = [i for i in range(BATCH) if set(top[i].tolist()) != sups[i]]
+    check(not wrong, f"{name}: support wrong on lanes {wrong[:8]}")
 
 
 def main_path(dev, card):
     import bench
     from sparse_solvers_tpu_torch import Homotopy
-    from sparse_solvers_tpu_torch.ops import dispatch
 
     A, Y = bench.make_problem(M, N, K_SPARSE, BATCH)
     solver = Homotopy(A, k_max=K_MAX, precision="certified", device=dev)
-    dispatch.reset_launches()
-    t0 = time.perf_counter()
-    X, rep = solver.solve_batch(Y, TOL, MAX_ITER)
-    torch.cuda.synchronize()
-    first = time.perf_counter() - t0
-    launches = dict(dispatch.launches)
-    phase(f"main path: solve_batch {M}x{N} k={K_SPARSE} batch={BATCH} "
-          f"tol={TOL} k_max={K_MAX} max_iter={MAX_ITER} certified: first "
-          f"call {first:.3f} s (Gram included); launches {launches}")
-    for name, count in launches.items():
-        check(count > 0, f"main path never launched kernel {name}")
-    # timed before the host-side checks below, whose multi-threaded numpy
-    # BLAS would compete for the cores that launch the solver's kernels
-    time_main_path(solver, Y, dev, card)
-
-    Xh = X.cpu().numpy()
-    errs = rep.solution_error.cpu().numpy()
-    iters = rep.iter.cpu().numpy()
-    check(np.isfinite(Xh).all(), "main path: non-finite solution")
-    check(bool((errs <= TOL).all()),
-          f"main path: {int((~(errs <= TOL)).sum())} lanes above tol")
-    sups = true_supports()
-    top = np.argsort(-np.abs(Xh), axis=1)[:, :K_SPARSE]
-    wrong = [i for i in range(BATCH) if set(top[i].tolist()) != sups[i]]
-    check(not wrong, f"main path: support wrong on lanes {wrong[:8]}")
+    Xh, errs, iters, launches = run_path("homotopy main path", solver, Y,
+                                         dev, card, MAX_ITER,
+                                         HOMOTOPY_KERNELS)
+    check_supports("homotopy main path", Xh, true_supports())
     lanes = np.arange(0, BATCH, BATCH // 16)
     A64 = A.astype(np.float64)
     c = (Y[lanes].astype(np.float64) - Xh[lanes].astype(np.float64) @ A64.T) @ A64
     cert = np.abs(c).max(axis=1)
     check(np.allclose(errs[lanes], cert, rtol=1e-4, atol=0),
-          f"main path: certificate vs float64 host recompute "
+          f"homotopy main path: certificate vs float64 host recompute "
           f"{errs[lanes]} vs {cert}")
-    phase(f"main path: {BATCH}/{BATCH} lanes certified <= {TOL} (max "
-          f"{errs.max():.4e}), top-{K_SPARSE} support exact on every lane, "
-          f"certificate = float64 host recompute to rtol 1e-4 on "
+    phase(f"homotopy main path: {BATCH}/{BATCH} lanes certified <= {TOL} "
+          f"(max {errs.max():.4e}), top-{K_SPARSE} support exact on every "
+          f"lane, certificate = float64 host recompute to rtol 1e-4 on "
           f"{len(lanes)} lanes; path iterations max {iters.max()} mean "
           f"{iters.mean():.1f}")
     return launches
 
 
+def omp_problem():
+    """benchmarks/bench_omp.py's problem, drawn in the order of
+    benchmarks/_common.py::make_sparse_problem (seed 0, unsigned
+    amplitudes 0.5 to 1.0): A (f32, unit columns), X, Y = X·Aᵀ."""
+    rng = np.random.RandomState(0)
+    A = rng.randn(M, N).astype(np.float32)
+    A /= np.linalg.norm(A, axis=0)
+    X = np.zeros((BATCH, N), np.float32)
+    for b in range(BATCH):
+        sup = rng.choice(N, K_SPARSE, replace=False)
+        X[b, sup] = rng.uniform(0.5, 1.0, K_SPARSE)
+    return A, X, (X @ A.T).astype(np.float32)
+
+
+def omp_paths(dev, card):
+    """The certified OMP and gOMP main paths on one problem."""
+    from sparse_solvers_tpu_torch import Omp
+
+    A, X0, Y = omp_problem()
+    sups = [set(np.flatnonzero(x).tolist()) for x in X0]
+    lanes = np.arange(0, BATCH, BATCH // 16)
+    A64 = A.astype(np.float64)
+    counts = {}
+    for name, picks, max_iter in (("omp main path", 1, OMP_MAX_ITER),
+                                  ("gomp main path", GOMP_PICKS,
+                                   GOMP_MAX_ITER)):
+        solver = Omp(A, precision="certified", picks=picks, device=dev)
+        plan = solver.explain(batch=BATCH, max_iterations=max_iter)
+        check(plan["corr"] == "driver", f"{name}: plan {plan}")
+        Xh, errs, iters, launches = run_path(name, solver, Y, dev, card,
+                                             max_iter, OMP_KERNELS)
+        k1, k4 = launches["normal_matvec_fused_bf16"], launches["omp_insert"]
+        check(k4 >= picks * k1,
+              f"{name}: {k4} K4 launches for {k1} q passes at picks={picks}")
+        check_supports(name, Xh, sups)
+        # ‖y − Ax‖₂ in float64 on the host, against the certificate. Once
+        # the support is complete the residual sits at the f32 rounding
+        # floor, so beside rtol 1e-4 each lane is allowed the f32
+        # evaluation bound of r = y − Ax: (k + 2)·2⁻²⁴·‖|y| + |x|·|A|ᵀ‖₂
+        Yl, Xl = Y[lanes].astype(np.float64), Xh[lanes].astype(np.float64)
+        ref = np.linalg.norm(Yl - Xl @ A64.T, axis=1)
+        slack = (K_SPARSE + 2) * 2.0 ** -24 * np.linalg.norm(
+            np.abs(Yl) + np.abs(Xl) @ np.abs(A64).T, axis=1)
+        gap = np.abs(errs[lanes] - ref)
+        check(bool((gap <= 1e-4 * ref + slack).all()),
+              f"{name}: certificate vs float64 host recompute "
+              f"{errs[lanes]} vs {ref} (slack {slack})")
+        phase(f"{name}: plan tiers {plan['capacity_tiers']}, k_max "
+              f"{plan['k_max']}, picks {picks}; {BATCH}/{BATCH} lanes "
+              f"certified <= {TOL} (max {errs.max():.4e}), top-{K_SPARSE} "
+              f"support exact on every lane, certificate = float64 host "
+              f"recompute within rtol 1e-4 + f32 evaluation bound on "
+              f"{len(lanes)} lanes (max gap {gap.max():.3e}, max bound "
+              f"{(1e-4 * ref + slack).max():.3e}); iterations max "
+              f"{iters.max()} mean {iters.mean():.1f}; q passes {k1}, K4 "
+              f"calls {k4}")
+        for kname, count in launches.items():
+            counts[kname] = counts.get(kname, 0) + count
+    return counts
+
+
 def cross_device(dev):
     import bench
-    from sparse_solvers_tpu_torch import Homotopy
+    from sparse_solvers_tpu_torch import Homotopy, Omp
     A, Y = bench.make_problem(256, 512, 8, 8, seed=5)
-    out = {}
-    for where in (dev, "cpu"):
-        s = Homotopy(A, k_max=64, precision="high", device=where)
-        X, rep = s.solve_batch(Y, TOL, 64)
-        out[where] = (X.cpu().numpy(), rep.iter.cpu().numpy())
-    (Xg, ig), (Xc, ic) = out[dev], out["cpu"]
-    check(np.array_equal(ig, ic), f"cross-device: iterations {ig} vs {ic}")
-    err = float(np.abs(Xg - Xc).max())
-    check(err <= 1e-5, f"cross-device: max |X_gpu - X_cpu| = {err}")
-    phase(f"cross-device 256x512 k=8 batch 8 high: iterations equal "
-          f"{ig.tolist()}, max |X_gpu - X_cpu| {err:.3e}")
+    for name, make in (
+            ("homotopy", lambda where: Homotopy(A, k_max=64, precision="high",
+                                                device=where)),
+            ("omp", lambda where: Omp(A, precision="high", device=where))):
+        out = {}
+        for where in (dev, "cpu"):
+            X, rep = make(where).solve_batch(Y, TOL, 64)
+            out[where] = (X.cpu().numpy(), rep.iter.cpu().numpy())
+        (Xg, ig), (Xc, ic) = out[dev], out["cpu"]
+        check(np.array_equal(ig, ic),
+              f"cross-device {name}: iterations {ig} vs {ic}")
+        err = float(np.abs(Xg - Xc).max())
+        check(err <= 1e-5, f"cross-device {name}: max |X_gpu - X_cpu| = "
+              f"{err}")
+        phase(f"cross-device {name} 256x512 k=8 batch 8 high: iterations "
+              f"equal {ig.tolist()}, max |X_gpu - X_cpu| {err:.3e}")
 
 
 def main() -> int:
@@ -358,9 +440,17 @@ def main() -> int:
 
     results = {"normal_matvec_fused_bf16": check_k1(dev, card),
                "find_max_gamma_fused": check_k2(dev, card),
-               "transition": check_k3(dev, card)}
+               "transition": check_k3(dev, card, K_MAX)}
+    check_k3(dev, card, 200)
+    # K4 at the OMP and gOMP paths' capacities; the JSON line keeps the
+    # certified OMP path's times and the larger error of the two
+    k4 = [check_k4(dev, card, K) for K in (OMP_MAX_ITER, GOMP_MAX_ITER)]
+    results["omp_insert"] = (max(k4[0][0], k4[1][0]),) + k4[0][1:]
     torch.cuda.synchronize()
+    # each main path counts its own launches from 0; the JSON line sums them
     launches = main_path(dev, card)
+    for name, count in omp_paths(dev, card).items():
+        launches[name] += count
     torch.cuda.synchronize()
     cross_device(dev)
     torch.cuda.synchronize()

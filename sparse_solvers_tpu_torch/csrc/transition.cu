@@ -26,11 +26,16 @@
 // lane holds inv and gk in dynamic shared memory (row stride K|1, odd, so
 // the row-per-thread matvecs hit distinct banks), above 48 KB after
 // cudaFuncSetAttribute; about K = 167 fills the 227 KB a block can have.
+// Beyond that the same kernel, instantiated with kShared = false, runs the
+// same per-lane math on inv and gk where they lie in device memory,
+// updated in place, with its K-vectors in a (b, 9K) device workspace that
+// the wrapper allocates — so no capacity is refused; every element update
+// reads and writes only its own element, so working in place is exact.
 // The branches are per lane, as the TPU kernel's tile-level pl.when could
 // not be: an inert lane returns at once and touches nothing, only a
 // removing lane runs the downdate, and only an inserting or removing lane
-// writes its matrices back. Frozen state is kept by not writing it —
-// never by a 0·x multiply.
+// writes its matrices. Frozen state is kept by not writing it — never by
+// a 0·x multiply.
 
 #include <cuda_runtime.h>
 
@@ -48,6 +53,10 @@ __host__ __device__ inline size_t smem_bytes(int K) {
   return (2 * (size_t)K * row_stride(K) + 9 * (size_t)K) * sizeof(float);
 }
 
+// kShared: inv and gk are staged in shared memory and written back;
+// otherwise they are worked on in place in device memory and the nine
+// K-vectors live in work (b, 9K).
+template <bool kShared>
 __global__ void __launch_bounds__(THREADS)
 transition_kernel(float* __restrict__ inv, float* __restrict__ gk,
                   float* __restrict__ x_act, float* __restrict__ d_act,
@@ -58,7 +67,7 @@ transition_kernel(float* __restrict__ inv, float* __restrict__ gk,
                   const uint8_t* __restrict__ live,
                   const uint8_t* __restrict__ doins,
                   const uint8_t* __restrict__ dorm, uint8_t* __restrict__ deg,
-                  float tol, int sentinel, int K) {
+                  float* __restrict__ work, float tol, int sentinel, int K) {
   const size_t lane = blockIdx.x;
   const int tid = threadIdx.x;
   if (!live[lane]) {  // inert lane: state untouched
@@ -67,10 +76,11 @@ transition_kernel(float* __restrict__ inv, float* __restrict__ gk,
   }
 
   extern __shared__ float sm[];
-  const int L = row_stride(K);
-  float* s_inv = sm;
-  float* s_gk = s_inv + K * L;
-  float* s_x = s_gk + K * L;
+  const size_t mbase = lane * K * K, vbase = lane * K;
+  const int L = kShared ? row_stride(K) : K;
+  float* s_inv = kShared ? sm : inv + mbase;
+  float* s_gk = kShared ? s_inv + K * L : gk + mbase;
+  float* s_x = kShared ? s_gk + K * L : work + lane * 9 * K;
   float* s_d = s_x + K;
   float* s_ca = s_d + K;
   float* s_u1 = s_ca + K;
@@ -82,11 +92,12 @@ transition_kernel(float* __restrict__ inv, float* __restrict__ gk,
   __shared__ float s_di;
   __shared__ int s_ok, s_ins, s_rm, s_p;
 
-  const size_t mbase = lane * K * K, vbase = lane * K;
-  for (int e = tid; e < K * K; e += THREADS) {
-    const int i = e / K, j = e % K;
-    s_inv[i * L + j] = inv[mbase + e];
-    s_gk[i * L + j] = gk[mbase + e];
+  if (kShared) {
+    for (int e = tid; e < K * K; e += THREADS) {
+      const int i = e / K, j = e % K;
+      s_inv[i * L + j] = inv[mbase + e];
+      s_gk[i * L + j] = gk[mbase + e];
+    }
   }
   for (int s = tid; s < K; s += THREADS) {
     s_x[s] = x_act[vbase + s];
@@ -221,7 +232,7 @@ transition_kernel(float* __restrict__ inv, float* __restrict__ gk,
     c_act[vbase + i] = s_ca[i];
     indices[vbase + i] = s_ind[i];
   }
-  if (ins || rm) {
+  if (kShared && (ins || rm)) {
     for (int e = tid; e < K * K; e += THREADS) {
       const int i = e / K, j = e % K;
       inv[mbase + e] = s_inv[i * L + j];
@@ -234,27 +245,36 @@ transition_kernel(float* __restrict__ inv, float* __restrict__ gk,
 
 extern "C" {
 
-// Dynamic shared memory one block needs at capacity K.
+// Dynamic shared memory one block needs to hold inv and gk at capacity K;
+// the wrapper passes a workspace instead where this exceeds the card's cap.
 int ss_transition_smem_bytes(int K) { return static_cast<int>(smem_bytes(K)); }
 
 // One batched transition, in place on inv, gk (b,K,K), x_act, d_act, c_act
 // (b,K) f32 and indices (b,K) int32; deg (b,) bool out. u1 (b,K) f32;
 // idx, kk (b,) int32; gamma, vtv, cnew (b,) f32; live, doins, dorm (b,)
-// bool. All contiguous, b > 0. Returns cudaGetLastError().
+// bool. All contiguous, b > 0. work is null (inv and gk staged in shared
+// memory) or a (b, 9K) f32 scratch (inv and gk worked on in device
+// memory). Returns cudaGetLastError().
 int ss_transition(float* inv, float* gk, float* x_act, float* d_act,
                   float* c_act, int* indices, const float* u1, const int* idx,
                   const int* kk, const float* gamma, const float* vtv,
                   const float* cnew, const uint8_t* live, const uint8_t* doins,
-                  const uint8_t* dorm, uint8_t* deg, float tol, int sentinel,
-                  int b, int K, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(K);
-  cudaError_t err = cudaFuncSetAttribute(
-      transition_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  transition_kernel<<<b, THREADS, bytes, stream>>>(
-      inv, gk, x_act, d_act, c_act, indices, u1, idx, kk, gamma, vtv, cnew,
-      live, doins, dorm, deg, tol, sentinel, K);
+                  const uint8_t* dorm, uint8_t* deg, float* work, float tol,
+                  int sentinel, int b, int K, cudaStream_t stream) {
+  if (work == nullptr) {
+    const size_t bytes = smem_bytes(K);
+    cudaError_t err = cudaFuncSetAttribute(
+        transition_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    transition_kernel<true><<<b, THREADS, bytes, stream>>>(
+        inv, gk, x_act, d_act, c_act, indices, u1, idx, kk, gamma, vtv, cnew,
+        live, doins, dorm, deg, nullptr, tol, sentinel, K);
+  } else {
+    transition_kernel<false><<<b, THREADS, 0, stream>>>(
+        inv, gk, x_act, d_act, c_act, indices, u1, idx, kk, gamma, vtv, cnew,
+        live, doins, dorm, deg, work, tol, sentinel, K);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

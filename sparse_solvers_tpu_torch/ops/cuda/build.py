@@ -1,8 +1,8 @@
 """Build and load the hand-written Hopper kernels.
 
-At first use, nvcc compiles every ``csrc/*.cu`` of the package into one
-shared library with a plain C interface for ``sm_90a``, and ctypes loads
-it. The library lands in ``build/sparse_solvers_tpu_torch/`` beside the
+At first use, nvcc compiles every ``csrc/*.cu`` of the package for
+``sm_90a`` (one nvcc per source, all started together), links the objects
+into one shared library with a plain C interface, and ctypes loads it. The library lands in ``build/sparse_solvers_tpu_torch/`` beside the
 package, under a name that carries a hash of the sources and flags, so a
 stale library is never loaded. ``torch.utils.cpp_extension`` is not
 used: a source that includes PyTorch's headers takes minutes to compile,
@@ -26,9 +26,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "sparse_solvers_tpu_torch"
-SOURCES = ("normal_bf16.cu", "scan.cu", "transition.cu")
+SOURCES = ("normal_bf16.cu", "scan.cu", "transition.cu", "omp_insert.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC")
+         "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argument types (every pointer and the stream as void*)
@@ -38,9 +38,11 @@ _SIGNATURES = {
     # q, c, mask, c_inf, x_act, d_act, indices, gamma, idx, b, n, K, stream
     "ss_find_max_gamma": (_P,) * 9 + (_I, _I, _I, _P),
     # inv, gk, x, d, ca, ind, u1, idx, kk, gamma, vtv, cnew, live, doins,
-    # dorm, deg, tol, sentinel, b, K, stream
-    "ss_transition": (_P,) * 16 + (ctypes.c_float, _I, _I, _I, _P),
+    # dorm, deg, work, tol, sentinel, b, K, stream
+    "ss_transition": (_P,) * 17 + (ctypes.c_float, _I, _I, _I, _P),
     "ss_transition_smem_bytes": (_I,),
+    # inv, u1, kk, vtv, b_act, doins, coef, deg, b, K, stream
+    "ss_omp_insert": (_P,) * 8 + (_I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -66,18 +68,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsstorch_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the first failure's
+    output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate() for proc in procs]
+    for cmd, proc, (out, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{err}{out}")
+
+
 def _compile(out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    objs = [tmp.with_name(f"{tmp.name}.{Path(name).stem}.o")
+            for name in SOURCES]
+    nvcc = _nvcc()
+    try:
+        _run([[nvcc, *FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+              for name, obj in zip(SOURCES, objs)])
+        _run([[nvcc, *FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+    finally:
+        for path in (tmp, *objs):
+            path.unlink(missing_ok=True)
 
 
 def library() -> ctypes.CDLL:
@@ -95,6 +113,17 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def check_operands(names: str, tensors, expected) -> None:
+    """Raise unless each tensor has its expected (shape, dtype) and is
+    contiguous — what a kernel takes; ``names`` is space-separated."""
+    for name, t, (shape, dtype) in zip(names.split(), tensors, expected):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
+                             f"{t.dtype} of shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def check(rc: int, what: str) -> None:

@@ -52,17 +52,11 @@ def find_max_gamma_fused(q, c, mask, c_inf, x_act, d_act, indices):
         return find_max_gamma_fused_plain(*args)
     b, n = q.shape
     K = x_act.shape[1] if x_act.dim() == 2 else -1
-    expect = {"q": ((b, n), torch.float32), "c": ((b, n), torch.float32),
-              "mask": ((b, n), torch.int8), "c_inf": ((b,), torch.float32),
-              "x_act": ((b, K), torch.float32),
-              "d_act": ((b, K), torch.float32),
-              "indices": ((b, K), torch.int32)}
-    for (name, (shape, dtype)), t in zip(expect.items(), args):
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
-                             f"{t.dtype} of shape {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    f32 = torch.float32
+    build.check_operands(
+        "q c mask c_inf x_act d_act indices", args,
+        [((b, n), f32), ((b, n), f32), ((b, n), torch.int8), ((b,), f32),
+         ((b, K), f32), ((b, K), f32), ((b, K), torch.int32)])
     gamma = torch.empty(b, dtype=torch.float32, device=q.device)
     idx = torch.empty(b, dtype=torch.int32, device=q.device)
     if b == 0:

@@ -3,9 +3,10 @@
 Port of ``sparse_solvers_tpu/ops/pallas/transition.py::transition`` (the
 Pallas kernel at :64-295; the math is written out in ``csrc/
 transition.cu``'s header). The CUDA form runs one block per lane with the
-lane's inverse and active Gram in shared memory, branches per lane, and
-updates inv, gk, x_act, d_act, c_act and indices in place, as the Pallas
-call aliases them (:279).
+lane's inverse and active Gram in shared memory — or, at a capacity whose
+two matrices do not fit there, on them where they lie in device memory —
+branches per lane, and updates inv, gk, x_act, d_act, c_act and indices
+in place, as the Pallas call aliases them (:279).
 
 ``transition_plain`` is its twin: the Pallas body as batched torch ops,
 every lane gated by ``torch.where`` selects (never a 0·x multiply), and
@@ -107,6 +108,15 @@ def transition_plain(inv, gk, x_act, d_act, c_act, indices, u1, idx, kk,
     return inv_o, gk_o, x_o, d_o, ca_o, ind_o, deg
 
 
+def fits_shared_memory(K: int, device) -> bool:
+    """Whether the kernel stages inv and gk of capacity K in one block's
+    shared memory on ``device`` (leaving room for its static scalars);
+    beyond that it works on them in place in device memory."""
+    cap = getattr(torch.cuda.get_device_properties(device),
+                  "shared_memory_per_block_optin", _SMEM_OPTIN)
+    return build.library().ss_transition_smem_bytes(K) <= cap - 1024
+
+
 def transition(inv, gk, x_act, d_act, c_act, indices, u1, idx, kk, gamma,
                vtv, cnew, live, doins, dorm, tol: float,
                sentinel: int) -> torch.Tensor:
@@ -126,33 +136,25 @@ def transition(inv, gk, x_act, d_act, c_act, indices, u1, idx, kk, gamma,
         return out[-1]
     b, K = x_act.shape
     f32, i32 = torch.float32, torch.int32
-    expect = ([((b, K, K), f32)] * 2 + [((b, K), f32)] * 3
-              + [((b, K), i32), ((b, K), f32), ((b,), i32), ((b,), i32)]
-              + [((b,), f32)] * 3 + [((b,), torch.bool)] * 3)
-    names = ("inv gk x_act d_act c_act indices u1 idx kk gamma vtv cnew "
-             "live doins dorm").split()
-    for name, (shape, dtype), t in zip(names, expect, args):
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
-                             f"{t.dtype} of shape {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    build.check_operands(
+        "inv gk x_act d_act c_act indices u1 idx kk gamma vtv cnew live "
+        "doins dorm", args,
+        [((b, K, K), f32)] * 2 + [((b, K), f32)] * 3
+        + [((b, K), i32), ((b, K), f32), ((b,), i32), ((b,), i32)]
+        + [((b,), f32)] * 3 + [((b,), torch.bool)] * 3)
     deg = torch.empty(b, dtype=torch.bool, device=x_act.device)
     if b == 0 or K == 0:
         return deg.zero_()
     lib = build.library()
-    cap = getattr(torch.cuda.get_device_properties(x_act.device),
-                  "shared_memory_per_block_optin", _SMEM_OPTIN)
-    need = lib.ss_transition_smem_bytes(K)
-    if need > cap - 1024:   # leave room for the kernel's static scalars
-        raise ValueError(
-            f"capacity K={K} needs {need} bytes of shared memory per block; "
-            f"this card allows {cap} (about K <= 167 on Hopper)")
+    # past shared memory the nine K-vectors live in a device workspace
+    work = (None if fits_shared_memory(K, x_act.device) else
+            torch.empty((b, 9 * K), dtype=f32, device=x_act.device))
     with torch.cuda.device(x_act.device):
         stream = torch.cuda.current_stream(x_act.device).cuda_stream
         rc = lib.ss_transition(*(t.data_ptr() for t in args),
-                               deg.data_ptr(), float(tol), int(sentinel),
-                               b, K, stream)
+                               deg.data_ptr(),
+                               None if work is None else work.data_ptr(),
+                               float(tol), int(sentinel), b, K, stream)
     build.check(rc, NAME)
     dispatch.launches[NAME] += 1
     return deg

@@ -12,7 +12,7 @@ tensor's device decides, per call, and nothing else does:
 
 Each wrapper adds one to ``launches[name]`` where it launches its CUDA
 kernel, and nowhere else, so a run can show that it went through the
-kernels (``chip_smoke.py`` reads the counts around the main path).
+kernels (``chip_smoke.py`` reads the counts around each main path).
 """
 
 from __future__ import annotations
@@ -30,6 +30,9 @@ KERNELS = {
     "transition": (
         "sparse_solvers_tpu_torch/csrc/transition.cu",
         "sparse_solvers_tpu/ops/pallas/transition.py:255"),
+    "omp_insert": (
+        "sparse_solvers_tpu_torch/csrc/omp_insert.cu",
+        "sparse_solvers_tpu/ops/pallas/omp_insert.py:108"),
 }
 
 launches = dict.fromkeys(KERNELS, 0)
@@ -54,8 +57,9 @@ def use_cuda_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel route for device {dev}")
 
 
-def explain(device) -> dict:
-    """Which form of each kernel a solve on ``device`` runs."""
+def explain(device, names=KERNELS) -> dict:
+    """Which form of each named kernel (default: all) a solve on
+    ``device`` runs."""
     cuda = torch.device(device).type == "cuda"
-    return {name: (f"cuda ({src})" if cuda else "plain torch twin")
-            for name, (src, _) in KERNELS.items()}
+    return {name: (f"cuda ({KERNELS[name][0]})" if cuda
+                   else "plain torch twin") for name in names}

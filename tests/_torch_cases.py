@@ -121,6 +121,89 @@ def transition_case(remove_last, b=8, K=13, n=50):
              doins, dorm), 0.01, n)
 
 
+def transition_mix(b, K, n, seed=3):
+    """One transition's inputs at a large capacity, active sets of 2 to K−2
+    columns from random SPD Grams: inserts, removals at p != last and
+    p == last, frozen lanes, and lane 1 a degenerate insert (orthonormal
+    active columns, a copy of column 0 inserted: den = 0 exactly). Returns
+    the 15 arrays of ``transition_case``."""
+    rng = np.random.RandomState(seed)
+    inv = np.zeros((b, K, K), np.float32)
+    gk = np.zeros((b, K, K), np.float32)
+    ind = np.full((b, K), n, np.int32)
+    xa, da, ca, u1 = (np.zeros((b, K), np.float32) for _ in range(4))
+    kk = np.zeros(b, np.int32)
+    idx = np.zeros(b, np.int32)
+    vtv = np.zeros(b, np.float32)
+    live = np.ones(b, bool)
+    pres = np.zeros(b, bool)
+    rows = K + 32
+    for lane in range(b):
+        k = rng.randint(2, K - 1)
+        cols = rng.choice(n, k + 1, replace=False)
+        Ag = rng.randn(rows, k + 1) / np.sqrt(rows)
+        g = Ag.T @ Ag
+        inv[lane, :k, :k] = np.linalg.inv(g[:k, :k])
+        gk[lane, :k, :k] = g[:k, :k]
+        ind[lane, :k] = cols[:k]
+        xa[lane, :k], da[lane, :k], ca[lane, :k] = rng.randn(3, k)
+        kk[lane] = k
+        kind = lane % 4
+        if kind in (0, 2):                      # remove at p != l / p == l
+            pres[lane] = True
+            idx[lane] = ind[lane, k - 1 if kind == 2 else rng.randint(k - 1)]
+        else:                                   # insert column cols[k]
+            idx[lane] = cols[k]
+            u1[lane, :k] = g[k, :k]
+            vtv[lane] = g[k, k]
+            live[lane] = kind == 1 or lane % 8 == 3   # half of kind 3 frozen
+    d = 1
+    inv[d], gk[d], ind[d] = 0, 0, n
+    inv[d, 0, 0] = inv[d, 1, 1] = gk[d, 0, 0] = gk[d, 1, 1] = 1.0
+    ind[d, :2] = (0, 1)
+    xa[d], da[d], ca[d], u1[d] = 0, 0, 0, 0
+    xa[d, 0], da[d, 0], ca[d, 0], u1[d, 0] = 0.5, 1.0, 0.3, 1.0
+    kk[d], idx[d], vtv[d], live[d], pres[d] = 2, 5, 1.0, True, False
+    gamma = (rng.rand(b) * 0.1).astype(np.float32)
+    cnew = rng.randn(b).astype(np.float32)
+    doins = live & ~pres & (kk < K)
+    dorm = live & pres
+    return (inv, gk, xa, da, ca, ind, u1, idx, kk, gamma, vtv, cnew, live,
+            doins, dorm)
+
+
+def omp_insert_case(b, K, seed=0):
+    """One batched OMP insert's inputs (inv, u1, kk, vtv, b_act, doins):
+    random SPD states at varied insert slots kk in [0, K−1] (the new
+    column's Gram row as u1, b_act filled through slot kk), every fourth
+    lane frozen (doins false), and lane 1 a degenerate insert: orthonormal
+    active columns with a copy of active column 0 inserted, so den = 1 − 1
+    = 0 exactly."""
+    rng = np.random.RandomState(seed)
+    inv = np.zeros((b, K, K), np.float32)
+    u1 = np.zeros((b, K), np.float32)
+    b_act = np.zeros((b, K), np.float32)
+    kk = np.zeros(b, np.int32)
+    vtv = np.zeros(b, np.float32)
+    rows = K + 32
+    for lane in range(b):
+        k = rng.randint(0, K)
+        Ag = rng.randn(rows, k + 1) / np.sqrt(rows)
+        g = Ag.T @ Ag
+        inv[lane, :k, :k] = np.linalg.inv(g[:k, :k])
+        u1[lane, :k] = g[k, :k]
+        vtv[lane] = g[k, k]
+        b_act[lane, :k + 1] = rng.randn(k + 1)
+        kk[lane] = k
+    doins = np.arange(b) % 4 != 3
+    if b > 1:
+        inv[1], u1[1], b_act[1] = 0, 0, 0
+        inv[1, 0, 0] = inv[1, 1, 1] = 1.0
+        u1[1, 0], vtv[1], kk[1], doins[1] = 1.0, 1.0, min(2, K - 1), True
+        b_act[1, :3] = (0.5, -0.25, 0.5)
+    return inv, u1, kk, vtv, b_act, doins
+
+
 def degenerate_case():
     """Two lanes with orthonormal active columns 0 and 1: lane 0 inserts a
     copy of column 0 (den = 1 - 1 = 0 exactly: degenerate), lane 1 an

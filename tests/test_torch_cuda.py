@@ -10,15 +10,18 @@ kernels' masked edges, which chip_smoke.py's aligned main-path shapes do
 not. Tolerances: K1 1e-3·max|Q| (a P element may land on the neighbouring
 bf16 value when the fp32 sums run in another order), K2 idx and gamma
 exact, K3 indices and deg exact, floats 1e-5 of the tensor's scale, frozen
-lanes bit-identical.
+lanes bit-identical; K4 deg exact, floats 1e-5 of the tensor's scale,
+lanes that are not gated bit-identical. Drivers on the card against the
+same drivers on the CPU twins at "high": iterations exact, X atol 1e-5.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (compressive_problem, degenerate_case, scan_case,
-                          transition_case)
+from _torch_cases import (compressive_problem, degenerate_case,
+                          omp_insert_case, scan_case, transition_case,
+                          transition_mix)
 
 pytestmark = pytest.mark.cuda
 
@@ -82,16 +85,71 @@ def test_k3_kernel_matches_twin(dev, case):
         assert torch.equal(got[untouched], b0[untouched])
 
 
-def test_k3_refuses_a_capacity_beyond_shared_memory(dev):
+@pytest.mark.parametrize("K", [200, 260])
+def test_k3_kernel_matches_twin_beyond_shared_memory(dev, K):
+    """inv and gk of K=200 and 260 do not fit in a block's shared memory:
+    the kernel works on them in place in device memory."""
     from sparse_solvers_tpu_torch.ops.cuda import transition as K3
-    b, K = 2, 200
-    f = lambda *s: torch.zeros(s, device=dev)
-    i = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
-    z = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        K3.transition(f(b, K, K), f(b, K, K), f(b, K), f(b, K), f(b, K),
-                      i(b, K), f(b, K), i(b), i(b), f(b), f(b), f(b),
-                      z(b), z(b), z(b), 0.01, 10)
+    n, tol = 1000, 0.01
+    base = [torch.from_numpy(a).to(dev) for a in transition_mix(12, K, n)]
+    work = [t.clone() for t in base]
+    deg = _counted(K3.NAME, lambda: K3.transition(*work, tol, n))
+    want = K3.transition_plain(*base, tol, n)
+    assert torch.equal(work[5], want[5]) and torch.equal(deg, want[6])
+    assert bool(deg[1]) and int(deg.sum()) == 1
+    for got, w in zip(work[:5], want[:5]):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((got - w).abs().max()) <= 1e-5 * scale
+    untouched = ~base[12] | deg
+    for got, b0 in zip(work[:6], base[:6]):
+        assert torch.equal(got[untouched], b0[untouched])
+
+
+def test_homotopy_beyond_shared_memory_matches_cpu_twins(dev):
+    """max_iterations=200 gives k_max = 201; 80-sparse signals run paths of
+    162 to 182 iterations, past the tiers [56, 104] into K3 at K=201.
+
+    Over such a path (about 45 removals) the f32 inverse gathers rounding:
+    the CPU twins' X itself lies up to 6.3e-3 from the float64 oracle
+    (oracle/homotopy.py, same iteration counts). So the card is held to
+    the CPU twins' iteration counts exactly, to the true supports, to the
+    tolerance, and to X within 1e-2."""
+    from sparse_solvers_tpu_torch import Homotopy
+    from sparse_solvers_tpu_torch.ops import dispatch
+    A, Y, Xt = compressive_problem(256, 512, 80, 4, seed=1)
+    out = {}
+    dispatch.reset_launches()
+    for where in (dev, "cpu"):
+        solver = Homotopy(A, precision="high", device=where)
+        assert solver.explain(batch=4, max_iterations=200)["k_max"] == 201
+        X, rep = solver.solve_batch(Y, 0.01, 200)
+        assert bool((rep.solution_error <= 0.01).all())
+        X = X.cpu().numpy()
+        for lane in range(4):
+            top = set(np.argsort(-np.abs(X[lane]))[:80].tolist())
+            assert top == set(np.flatnonzero(Xt[lane]).tolist())
+        out[str(where)] = (X, rep.iter.cpu().numpy())
+    (Xg, ig), (Xc, ic) = out[str(dev)], out["cpu"]
+    assert ig.min() > 104, ig
+    np.testing.assert_array_equal(ig, ic)
+    np.testing.assert_allclose(Xg, Xc, atol=1e-2)
+    assert dispatch.launches["transition"] > 0
+
+
+@pytest.mark.parametrize("K", [13, 72, 128, 300])
+@pytest.mark.parametrize("b", [5, 70, 256])
+def test_k4_kernel_matches_twin(dev, b, K):
+    from sparse_solvers_tpu_torch.ops.cuda import omp_insert as K4
+    base = [torch.from_numpy(a).to(dev) for a in omp_insert_case(b, K)]
+    inv = base[0].clone()
+    coef, deg = _counted(K4.NAME, lambda: K4.omp_insert(inv, *base[1:]))
+    inv_p, coef_p, deg_p = K4.omp_insert_plain(*base)
+    assert torch.equal(deg, deg_p) and bool(deg[1])
+    gated = base[5] & ~deg
+    assert torch.equal(inv[~gated], base[0][~gated])
+    for got, want in ((inv, inv_p), (coef, coef_p)):
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= 1e-5 * scale
 
 
 def test_driver_on_card_matches_cpu_twins(dev):
@@ -107,13 +165,56 @@ def test_driver_on_card_matches_cpu_twins(dev):
     np.testing.assert_allclose(Xg, Xc, atol=1e-5)
 
 
-def test_certified_driver_on_card_launches_every_kernel(dev):
+HOMOTOPY_KERNELS = ("normal_matvec_fused_bf16", "find_max_gamma_fused",
+                    "transition")
+
+
+def test_certified_driver_on_card_launches_its_kernels(dev):
     from sparse_solvers_tpu_torch import Homotopy
     from sparse_solvers_tpu_torch.ops import dispatch
     A, Y, Xt = compressive_problem(256, 512, 8, 16, seed=3)
     dispatch.reset_launches()
     X, rep = Homotopy(A, k_max=48, device=dev).solve_batch(Y, 0.01, 64)
-    assert all(v > 0 for v in dispatch.launches.values())
+    assert all(dispatch.launches[k] > 0 for k in HOMOTOPY_KERNELS)
+    assert dispatch.launches["omp_insert"] == 0
+    assert bool((rep.solution_error <= 0.01).all())
+    X = X.cpu().numpy()
+    for lane in range(16):
+        top = set(np.argsort(-np.abs(X[lane]))[:8].tolist())
+        assert top == set(np.flatnonzero(Xt[lane]).tolist())
+
+
+@pytest.mark.parametrize("picks", [1, 4])
+def test_omp_on_card_matches_cpu_twins(dev, picks):
+    from sparse_solvers_tpu_torch import Omp
+    from sparse_solvers_tpu_torch.ops import dispatch
+    A, Y, Xt = compressive_problem(128, 256, 6, 16)
+    out = {}
+    for where in (dev, "cpu"):
+        dispatch.reset_launches()
+        X, rep = Omp(A, precision="high", picks=picks,
+                     device=where).solve_batch(Y, 0.01, 24)
+        out[str(where)] = (X.cpu().numpy(), rep.iter.cpu().numpy(),
+                           dict(dispatch.launches))
+    (Xg, ig, lg), (Xc, ic, lc) = out[str(dev)], out["cpu"]
+    np.testing.assert_array_equal(ig, ic)
+    np.testing.assert_allclose(Xg, Xc, atol=1e-5)
+    # "high": K4 only, and the CPU run launched nothing
+    assert lg["omp_insert"] > 0 and lg["normal_matvec_fused_bf16"] == 0
+    assert not any(lc.values())
+
+
+@pytest.mark.parametrize("picks", [1, 4])
+def test_certified_omp_on_card_launches_k1_and_k4(dev, picks):
+    from sparse_solvers_tpu_torch import Omp
+    from sparse_solvers_tpu_torch.ops import dispatch
+    A, Y, Xt = compressive_problem(256, 512, 8, 16, seed=3)
+    dispatch.reset_launches()
+    X, rep = Omp(A, picks=picks, device=dev).solve_batch(Y, 0.01, 32)
+    k1, k4 = (dispatch.launches[k] for k in ("normal_matvec_fused_bf16",
+                                              "omp_insert"))
+    assert k1 > 0 and k4 >= picks * k1
+    assert dispatch.launches["transition"] == 0
     assert bool((rep.solution_error <= 0.01).all())
     X = X.cpu().numpy()
     for lane in range(16):
