@@ -5,22 +5,35 @@
 Builds the port's hand-written Hopper kernels from ``sparse_solvers_tpu_torch/
 csrc`` with nvcc and holds each against its plain PyTorch twin on the card
 at the shapes of the main paths (K3 also at K=200, past a block's shared
-memory). Then it drives the three main paths on a 4096x8192 f32 sensing
-matrix with k=64-sparse signals, batch 256, tol 1e-2, each at precision
-"certified":
+memory; K5 and K6 at b = 8, 64 and 256, at "highest" and "default"). Then
+it drives the main paths on a 4096x8192 f32 sensing matrix with k=64-sparse
+signals, tol 1e-2:
 
-  * ``Homotopy``, k_max 96, 128 iterations (the workload of ``bench.py``);
-  * ``Omp``, max_iterations 72, so k_max 72 (``benchmarks/bench_omp.py``);
-  * ``Omp(picks=4)`` (gOMP), max_iterations 128, on the same problem;
+  * ``Homotopy`` batch 256, k_max 96, 128 iterations, "certified" (the
+    workload of ``bench.py``);
+  * ``Omp`` batch 256, max_iterations 72, so k_max 72, "certified"
+    (``benchmarks/bench_omp.py``), and ``Omp(picks=4)`` (gOMP),
+    max_iterations 128, on the same problem;
+  * the kernel roofline path of ``benchmarks/bench_kernels.py``: K5
+    ``normal_matvec_fused`` and K6 ``residual_correlation_fused`` at
+    b = 8, 64, 256 at both precisions, timed through
+    ``utils/profiling.measure`` beside their twins and two-``matmul``
+    library calls, with the roofline share;
+  * the per-lane Homotopy core: certified single ``solve``s, an 8-lane
+    sparse-regime ``solve_batch``, exact against fast mode, float64, and
+    ``solve_path``;
 
 and checks that every lane is certified, recovers its true support, and
-went through the kernels of its path (Homotopy K1, K2, K3; OMP K1, K4).
-Ends with small cross-device checks of the port on the card against the
-port on the CPU. Any failed check raises, so the script exits non-zero and
-never prints its last line. Needs one CUDA card; imports nothing of JAX.
+went through the kernels of its path (Homotopy K1, K2, K3; OMP K1, K4;
+the roofline path K5, K6; the core none). Ends with small cross-device
+checks of the port on the card against the port on the CPU. Any failed
+check raises, so the script exits non-zero and never prints its last
+line. Needs one CUDA card; imports nothing of JAX.
 
-Output: phases on earlier lines, then one JSON line of per-kernel results,
-then ``{"ok": true, "device": {...}}`` as the last line.
+Output: phases on earlier lines, then one JSON line of per-kernel results
+(each with its bound: the larger of its bytes over 3.35 TB/s and its
+operations over the H100's peak for their type), then ``{"ok": true,
+"device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -42,9 +55,30 @@ from _torch_cases import omp_insert_case, transition_mix  # noqa: E402
 M, N, K_SPARSE, BATCH = 4096, 8192, 64, 256
 TOL, K_MAX, MAX_ITER = 1e-2, 96, 128
 OMP_MAX_ITER, GOMP_MAX_ITER, GOMP_PICKS = 72, 128, 4
+FUSED_BATCHES, FUSED_PRECISIONS = (8, 64, 256), ("highest", "default")
+# the (b, precision) of K5's and K6's entries in the JSON line; the phase
+# lines give every case
+FUSED_REPORTED = (64, "highest")
 HOMOTOPY_KERNELS = ("normal_matvec_fused_bf16", "find_max_gamma_fused",
                     "transition")
 OMP_KERNELS = ("normal_matvec_fused_bf16", "omp_insert")
+FUSED_KERNELS = ("normal_matvec_fused", "residual_correlation_fused")
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(flops: float, nbytes: float, peak_flops: float):
+    """(bound_ms, bound_by): the least time the H100 could take for this
+    work, the larger of its bytes over the memory rate and its operations
+    over their peak rate (NVIDIA's data sheet, SXM, dense)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def result(err, ms, plain, library, bound_ms, bound_by):
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "library_ms": library, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def phase(msg: str) -> None:
@@ -95,18 +129,26 @@ def check_k1(dev, card):
     # value (relative step 2^-8) when the fp32 sums run in another order;
     # each such flip moves a Q element by about 2^-8·|P_i|·|A_ij|, so
     # 1e-3·max|Q| leaves room for many flips per row.
-    bound = 1e-3 * float(Qp.abs().max())
+    limit = 1e-3 * float(Qp.abs().max())
     check(bool(torch.isfinite(Q).all()), "K1: non-finite output")
-    check(err <= bound, f"K1: max |Q - twin| = {err} > {bound}")
+    check(err <= limit, f"K1: max |Q - twin| = {err} > {limit}")
     check(torch.equal(Q, K1.normal_matvec_fused_bf16(A16, D)),
           "K1: two runs on the same inputs differ (it has no split-K)")
     ms = time_ms(lambda: K1.normal_matvec_fused_bf16(A16, D))
     plain = time_ms(lambda: K1.normal_matvec_fused_bf16_plain(A16, D))
+    # the library yardstick: two bf16 cuBLAS products, P = D16·A16ᵀ then
+    # P·A16; Q comes out rounded to bf16, so it is not the same function
+    D16 = D.to(torch.bfloat16)
+    library = time_ms(lambda: torch.matmul(torch.matmul(D16, A16.T), A16))
+    # A16 read once, D read, Q written; 4·b·m·n bf16 tensor-core operations
+    b_ms, b_by = bound(4 * BATCH * M * N, M * N * 2 + 2 * BATCH * N * 4,
+                       989e12)
     phase(f"K1 normal_matvec_fused_bf16 b={BATCH} m={M} n={N}: max|err| "
-          f"{err:.3e} <= {bound:.3e} (1e-3*max|Q|), repeat run "
-          f"bit-identical; kernel {ms:.4f} ms, "
-          f"twin {plain:.4f} ms [{card}]")
-    return err, ms, plain
+          f"{err:.3e} <= {limit:.3e} (1e-3*max|Q|), repeat run "
+          f"bit-identical; kernel {ms:.4f} ms, twin {plain:.4f} ms, two "
+          f"bf16 matmuls {library:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+          f"[{card}]")
+    return result(err, ms, plain, library, b_ms, b_by)
 
 
 def check_k2(dev, card):
@@ -152,10 +194,14 @@ def check_k2(dev, card):
     err = float((gam - gp).abs().max())
     ms = time_ms(lambda: K2.find_max_gamma_fused(*args))
     plain = time_ms(lambda: K2.find_max_gamma_fused_plain(*args))
+    # every input read once (q, c f32; mask int8; c_inf; the slot vectors),
+    # gamma and idx written; about 12 fp32 operations per position
+    nbytes = sum(t.numel() * t.element_size() for t in args) + 8 * b
+    b_ms, b_by = bound(12 * b * (n + K), nbytes, 67e12)
     phase(f"K2 find_max_gamma_fused b={b} n={n} K={K}: idx exact, gamma "
           f"bit-exact, planted ties {got}; kernel {ms:.4f} ms, twin "
-          f"{plain:.4f} ms [{card}]")
-    return err, ms, plain
+          f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
+    return result(err, ms, plain, None, b_ms, b_by)
 
 
 def check_k3(dev, card, K):
@@ -196,11 +242,22 @@ def check_k3(dev, card, K):
               "frozen": int((~live).sum()), "degenerate": int(deg.sum())}
     where = ("shared memory" if K3.fits_shared_memory(K, dev)
              else "device memory, in place")
+    # what these lanes need: each live lane reads its k×k blocks of inv and
+    # gk and the direction update reads inv again; a toggled lane writes
+    # both blocks at their new size k′; about 8·k² operations per lane
+    kk = base[8].long().cpu()
+    toggled = (base[13] | base[14]).cpu() & ~deg.cpu() & live.cpu()
+    k_new = torch.where(base[13].cpu(), kk + 1, kk - 1)
+    k_new = torch.where(toggled, k_new, torch.zeros_like(kk))
+    kl = torch.where(live.cpu(), kk, torch.zeros_like(kk))
+    nbytes = 4 * int((3 * kl ** 2 + 2 * k_new ** 2 + 12 * kl).sum()) + 40 * b
+    b_ms, b_by = bound(8 * int((kl ** 2).sum()), nbytes, 67e12)
     phase(f"K3 transition b={b} K={K} (inv and gk in {where}): indices and "
           f"deg exact, frozen lanes bit-identical, floats within 1e-5 "
           f"relative (max|err| {err:.3e}); lanes {counts}; kernel "
-          f"{ms:.4f} ms, twin {plain:.4f} ms [{card}]")
-    return err, ms, plain
+          f"{ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}) [{card}]")
+    return result(err, ms, plain, None, b_ms, b_by)
 
 
 def check_k4(dev, card, K):
@@ -226,12 +283,229 @@ def check_k4(dev, card, K):
     ms = time_ms(lambda: K4.omp_insert(inv, *base[1:]),
                  prepare=lambda: inv.copy_(base[0]))
     plain = time_ms(lambda: K4.omp_insert_plain(*base))
+    # what these lanes need: every lane reads its k×k inverse (u2 and its
+    # coef come from it), a gated lane writes it at (k+1)×(k+1); u1, b_act
+    # read and coef written; about 6·k² operations per lane
+    kk = base[2].long().cpu()
+    kg = torch.where(gated.cpu(), kk + 1, torch.zeros_like(kk))
+    nbytes = 4 * int((kk ** 2 + kg ** 2).sum() + 3 * b * K) + 12 * b
+    b_ms, b_by = bound(6 * int((kk ** 2).sum()), nbytes, 67e12)
     phase(f"K4 omp_insert b={b} K={K}: deg exact, lanes not gated "
           f"bit-identical, floats within 1e-5 relative (max|err| "
           f"{err:.3e}); lanes gated {int(gated.sum())}, frozen "
           f"{int((~base[5]).sum())}, degenerate {int(deg.sum())}; kernel "
-          f"{ms:.4f} ms, twin {plain:.4f} ms [{card}]")
-    return err, ms, plain
+          f"{ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}) [{card}]")
+    return result(err, ms, plain, None, b_ms, b_by)
+
+
+def fused_case(dev, b):
+    """K5's and K6's inputs at the kernel bench's shape (m=4096, n=8192):
+    A, D (the X of K6) and Y, seeded on the card."""
+    g = torch.Generator(device=dev).manual_seed(5 + b)
+    A = torch.randn(M, N, generator=g, device=dev) / M ** 0.5
+    D = torch.randn(b, N, generator=g, device=dev)
+    Y = torch.randn(b, M, generator=g, device=dev)
+    return A, D, Y
+
+
+def fused_calls(A, D, Y):
+    """{name: (kernel, twin, library)} for K5 and K6 on these inputs; the
+    library yardstick is two torch.matmuls at the scope's precision (bf16
+    cuBLAS on operands rounded beforehand at "default")."""
+    from sparse_solvers_tpu_torch.ops import blas
+    from sparse_solvers_tpu_torch.ops.cuda import kernels as K
+    if blas.current_precision() == "default":
+        A16, D16 = A.to(torch.bfloat16), D.to(torch.bfloat16)
+        Y16 = Y.to(torch.bfloat16)
+        lib5 = lambda: torch.matmul(torch.matmul(D16, A16.T), A16)
+        lib6 = lambda: torch.matmul(Y16 - torch.matmul(D16, A16.T), A16)
+    else:
+        lib5 = lambda: torch.matmul(torch.matmul(D, A.T), A)
+        lib6 = lambda: torch.matmul(Y - torch.matmul(D, A.T), A)
+    return {
+        "normal_matvec_fused": (
+            lambda: K.normal_matvec_fused(A, D),
+            lambda: K.normal_matvec_fused_plain(A, D), lib5),
+        "residual_correlation_fused": (
+            lambda: K.residual_correlation_fused(A, D, Y),
+            lambda: K.residual_correlation_fused_plain(A, D, Y), lib6),
+    }
+
+
+def check_k5_k6(dev, card):
+    """K5 and K6 against their twins at every b and precision: 1e-5 of
+    max|ref| at "highest" (fp32 sums in another order), 1e-3 at "default"
+    (an element of the bf16 intermediate may land on the neighbouring bf16
+    value, as for K1); repeat runs bit-identical. Returns the largest
+    error per kernel."""
+    from sparse_solvers_tpu_torch.ops import blas
+    errs = dict.fromkeys(FUSED_KERNELS, 0.0)
+    for b in FUSED_BATCHES:
+        A, D, Y = fused_case(dev, b)
+        for prec in FUSED_PRECISIONS:
+            rel = 1e-5 if prec == "highest" else 1e-3
+            with blas.precision_scope(prec):
+                for name, (kern, twin, _) in fused_calls(A, D, Y).items():
+                    got, want = kern(), twin()
+                    torch.cuda.synchronize()
+                    check(bool(torch.isfinite(got).all()),
+                          f"{name}: non-finite output")
+                    err = float((got - want).abs().max())
+                    lim = rel * float(want.abs().max())
+                    check(err <= lim, f"{name} b={b} {prec}: max|err| "
+                          f"{err} > {lim}")
+                    check(torch.equal(got, kern()),
+                          f"{name} b={b} {prec}: two runs differ")
+                    errs[name] = max(errs[name], err)
+                    phase(f"{name} b={b} m={M} n={N} {prec}: max|err| "
+                          f"{err:.3e} <= {lim:.3e} ({rel:g}*max|ref|), "
+                          f"repeat run bit-identical")
+    return errs
+
+
+def fused_roofline_path(dev, card):
+    """The kernel roofline path (benchmarks/bench_kernels.py:53-88): K5
+    and K6 timed through ``profiling.measure`` at every b and precision,
+    beside their twins and the library calls, with the roofline share.
+    Returns {name: {(b, precision): (ms, twin_ms, library_ms, bound_ms,
+    bound_by)}}."""
+    from sparse_solvers_tpu_torch.ops import blas
+    from sparse_solvers_tpu_torch.utils import profiling
+    chip = profiling.detect_chip() or profiling.CHIPS["h100"]
+    out = {name: {} for name in FUSED_KERNELS}
+    for b in FUSED_BATCHES:
+        A, D, Y = fused_case(dev, b)
+        for prec in FUSED_PRECISIONS:
+            with blas.precision_scope(prec):
+                for name, fns in fused_calls(A, D, Y).items():
+                    # each input read once, the output written once
+                    nbytes = 4 * (M * N + 2 * b * N
+                                  + (b * M if name != FUSED_KERNELS[0]
+                                     else 0))
+                    flops = 4 * b * M * N
+                    rs = [profiling.measure(fn, flops=flops, bytes=nbytes,
+                                            reps=10) for fn in fns]
+                    b_s = chip.bound_seconds(flops, nbytes, prec)
+                    by = ("bytes" if nbytes / (chip.hbm_gbps * 1e9)
+                          >= flops / (chip.peak_tflops(prec) * 1e12)
+                          else "operations")
+                    ms = [r.seconds * 1e3 for r in rs]
+                    out[name][(b, prec)] = (*ms, b_s * 1e3, by)
+                    phase(f"{name} b={b} {prec} (profiling.measure, 10 "
+                          f"launches): kernel {ms[0]:.4f} ms "
+                          f"({rs[0].tflops:.2f} TFLOP/s, {rs[0].gbps:.0f} "
+                          f"GB/s, {100 * rs[0].fraction_of_peak(prec):.1f}% "
+                          f"of the {chip.name} roofline), twin "
+                          f"{ms[1]:.4f} ms, two matmuls {ms[2]:.4f} ms, "
+                          f"bound {b_s * 1e3:.4f} ms ({by}) [{card}]")
+    return out
+
+
+def core_paths(dev, card):
+    """The per-lane Homotopy core at full width on bench.make_problem
+    (4096x8192, k=64), each phase with the launch counts read from 0:
+    the core runs no kernel of K1 to K6."""
+    import bench
+    from sparse_solvers_tpu_torch import Homotopy
+    from sparse_solvers_tpu_torch.ops import dispatch
+    A, Y = bench.make_problem(M, N, K_SPARSE, 8)
+    sups = true_supports()
+
+    def no_launches(what):
+        check(not any(dispatch.launches.values()),
+              f"{what} launched {dispatch.launches}")
+
+    # certified single solves on 4 lanes, then 10 fenced timed runs
+    solver = Homotopy(A, precision="certified", device=dev)
+    solver.solve(Y[0], TOL)                     # the Gram, once
+    dispatch.reset_launches()
+    for lane in range(4):
+        x, rep = solver.solve(Y[lane], TOL)
+        xh = x.cpu().numpy()
+        check(rep.solution_error <= TOL,
+              f"core solve lane {lane}: certificate {rep.solution_error}")
+        top = set(np.argsort(-np.abs(xh))[:K_SPARSE].tolist())
+        check(top == sups[lane], f"core solve lane {lane}: support wrong")
+    no_launches("core solve")
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, rep = solver.solve(Y[0], TOL)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    q1, med, q3 = np.percentile(times, [25, 50, 75])
+    phase(f"core solve {M}x{N} k={K_SPARSE} certified: 4/4 lanes "
+          f"certified, top-{K_SPARSE} support exact; {rep.iter} iterations; "
+          f"median {med * 1e3:.3f} ms per solve over 10 fenced runs "
+          f"(quartiles {q1 * 1e3:.3f}, {q3 * 1e3:.3f}); launches 0 [{card}]")
+
+    # an 8-lane batch in the sparse-matvec regime: the batched core
+    batched = Homotopy(A, k_max=K_MAX, precision="certified", device=dev)
+    plan = batched.explain(batch=8, max_iterations=MAX_ITER)
+    check(plan["formulation"].startswith("batched while-loop core")
+          and plan["sparse_matvec"] and plan["kernels"] == {},
+          f"8-lane plan {plan}")
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    X, rep = batched.solve_batch(Y[:8], TOL, MAX_ITER)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    no_launches("8-lane core batch")
+    Xh, errs = X.cpu().numpy(), rep.solution_error.cpu().numpy()
+    check(bool((errs <= TOL).all()), f"8-lane core batch: errors {errs}")
+    for lane in range(8):
+        top = set(np.argsort(-np.abs(Xh[lane]))[:K_SPARSE].tolist())
+        check(top == sups[lane], f"8-lane core batch: lane {lane} support")
+    phase(f"core solve_batch 8 lanes k_max {K_MAX}: plan "
+          f"'{plan['formulation']}', 8/8 certified (max {errs.max():.3e}), "
+          f"supports exact, {dt * 1e3:.1f} ms (first call), launches 0")
+
+    # exact against fast mode at "highest" on one lane
+    dispatch.reset_launches()
+    outs = {mode: Homotopy(A, mode=mode, precision="highest",
+                           device=dev).solve(Y[1], TOL)
+            for mode in ("fast", "exact")}
+    no_launches("exact/fast solves")
+    (xf, rf), (xe, re_) = outs["fast"], outs["exact"]
+    gap = float((xf - xe).abs().max())
+    check(rf.iter == re_.iter and gap <= 1e-5,
+          f"exact vs fast: iterations {re_.iter} vs {rf.iter}, max|dX| {gap}")
+    phase(f"core exact vs fast highest: {rf.iter} iterations each, "
+          f"max|dX| {gap:.3e}")
+
+    # float64: certified, support exact
+    dispatch.reset_launches()
+    A64, Y64 = bench.make_problem(M, N, K_SPARSE, 1, dtype=np.float64)
+    x64, r64 = Homotopy(A64, device=dev).solve(Y64[0], TOL)
+    no_launches("float64 solve")
+    top = set(np.argsort(-np.abs(x64.cpu().numpy()))[:K_SPARSE].tolist())
+    check(x64.dtype == torch.float64 and r64.solution_error <= TOL
+          and top == sups[0], f"float64 solve: {r64}, support "
+          f"{top == sups[0]}")
+    phase(f"core float64 solve: certified {r64.solution_error:.3e}, "
+          f"{r64.iter} iterations, support exact")
+
+    # solve_path: the last breakpoint is solve's x; the KKT identity
+    dispatch.reset_launches()
+    high = Homotopy(A, precision="high", device=dev)
+    lam, Xs, rp = high.solve_path(Y[2], TOL)
+    xs, rs = high.solve(Y[2], TOL)
+    no_launches("solve_path")
+    gap = float(np.abs(Xs[-1] - xs.cpu().numpy()).max())
+    check(rp.iter == rs.iter and gap <= 1e-6,
+          f"solve_path: iterations {rp.iter} vs {rs.iter}, gap {gap}")
+    A64h = A.astype(np.float64)
+    # rtol 1e-4 and atol 1e-6 (test_api.py:339), on rows before the last,
+    # whose λ sits at the f32 rounding floor of an exact recovery
+    rows = sorted({0, len(lam) // 3, 2 * len(lam) // 3, len(lam) - 2})
+    kkt = max(abs(np.abs(A64h.T @ (Y[2] - A64h @ Xs[t])).max() - lam[t])
+              - 1e-4 * lam[t] for t in rows)
+    check(kkt <= 1e-6, f"solve_path: KKT gap beyond rtol 1e-4: {kkt}")
+    phase(f"core solve_path: {len(lam)} breakpoints, last = solve's x "
+          f"(max gap {gap:.1e}), ‖Aᵀ(y−Ax_t)‖∞ = λ_t within rtol 1e-4 and "
+          f"atol 1e-6 on rows {rows}")
 
 
 def true_supports():
@@ -414,6 +688,46 @@ def cross_device(dev):
               f"{err}")
         phase(f"cross-device {name} 256x512 k=8 batch 8 high: iterations "
               f"equal {ig.tolist()}, max |X_gpu - X_cpu| {err:.3e}")
+    # the per-lane core: a single solve, an 8-lane sparse-regime batch
+    # (8·32 < 2m), a float64 solve
+    A64, Y64 = bench.make_problem(256, 512, 8, 8, seed=5, dtype=np.float64)
+    for name, make, run, atol in (
+            ("core solve", lambda w: Homotopy(A, precision="high", device=w),
+             lambda s: s.solve(Y[0], 1e-4, 64), 1e-5),
+            ("core batch", lambda w: Homotopy(A, k_max=32, precision="high",
+                                              device=w),
+             lambda s: s.solve_batch(Y, 1e-4, 31), 1e-5),
+            ("core float64", lambda w: Homotopy(A64, device=w),
+             lambda s: s.solve(Y64[0], 1e-9, 64), 1e-10)):
+        out = {}
+        for where in (dev, "cpu"):
+            x, rep = run(make(where))
+            it = rep.iter if isinstance(rep.iter, int) else rep.iter.tolist()
+            out[where] = (x.cpu().numpy(), it)
+        (xg, ig), (xc, ic) = out[dev], out["cpu"]
+        err = float(np.abs(xg - xc).max())
+        check(ig == ic and err <= atol, f"cross-device {name}: iterations "
+              f"{ig} vs {ic}, max |dX| {err}")
+        phase(f"cross-device {name} 256x512: iterations equal {ig}, max "
+              f"|X_gpu - X_cpu| {err:.3e} <= {atol:g}")
+    # update_column on the card against a solver built on the changed A
+    col = np.random.RandomState(6).randn(256).astype(np.float32)
+    col /= np.linalg.norm(col)
+    A2 = A.copy()
+    A2[:, 11] = col
+    s = Homotopy(A, precision="high", device=dev)
+    _ = s._G
+    s.update_column(11, col)
+    gg = float((s._G - Homotopy(A2, precision="high", device=dev)._G)
+               .abs().max())
+    Xa, ra = s.solve_batch(Y, TOL, 64)
+    Xb, rb = Homotopy(A2, precision="high", device=dev).solve_batch(Y, TOL,
+                                                                    64)
+    err = float((Xa - Xb).abs().max())
+    check(gg <= 1e-5 and torch.equal(ra.iter, rb.iter) and err <= 1e-5,
+          f"update_column: Gram gap {gg}, max |dX| {err}")
+    phase(f"update_column on the card: Gram within {gg:.1e} of the rebuilt "
+          f"one, solve_batch iterations equal, max |dX| {err:.3e}")
 
 
 def main() -> int:
@@ -443,24 +757,41 @@ def main() -> int:
                "transition": check_k3(dev, card, K_MAX)}
     check_k3(dev, card, 200)
     # K4 at the OMP and gOMP paths' capacities; the JSON line keeps the
-    # certified OMP path's times and the larger error of the two
+    # certified OMP path's numbers and the larger error of the two
     k4 = [check_k4(dev, card, K) for K in (OMP_MAX_ITER, GOMP_MAX_ITER)]
-    results["omp_insert"] = (max(k4[0][0], k4[1][0]),) + k4[0][1:]
+    results["omp_insert"] = dict(k4[0], max_abs_err=max(
+        k4[0]["max_abs_err"], k4[1]["max_abs_err"]))
+    fused_errs = check_k5_k6(dev, card)
     torch.cuda.synchronize()
     # each main path counts its own launches from 0; the JSON line sums them
     launches = main_path(dev, card)
     for name, count in omp_paths(dev, card).items():
         launches[name] += count
+    dispatch.reset_launches()
+    fused = fused_roofline_path(dev, card)
+    torch.cuda.synchronize()
+    for name, count in dispatch.launches.items():
+        if name in FUSED_KERNELS:
+            check(count > 0, f"the roofline path never launched {name}")
+        else:
+            check(count == 0, f"the roofline path launched {name}")
+        launches[name] += count
+    phase(f"roofline path launches {dict(dispatch.launches)}")
+    for name in FUSED_KERNELS:
+        ms, plain, library, b_ms, by = fused[name][FUSED_REPORTED]
+        results[name] = result(fused_errs[name], ms, plain, library, b_ms,
+                               by)
+    core_paths(dev, card)
     torch.cuda.synchronize()
     cross_device(dev)
     torch.cuda.synchronize()
 
     kernels = []
-    for name, (err, ms, plain) in results.items():
+    for name, res in results.items():
         source, replaces = dispatch.KERNELS[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain})
+                        **res})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

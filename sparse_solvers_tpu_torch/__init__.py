@@ -1,5 +1,5 @@
-"""sparse-solvers-tpu, PyTorch/CUDA port — the batched certified Homotopy and
-OMP/gOMP paths.
+"""sparse-solvers-tpu, PyTorch/CUDA port — the Homotopy façade, the batched
+certified OMP/gOMP path and every TPU kernel's Hopper counterpart.
 
 A second package beside ``sparse_solvers_tpu`` (the JAX reference, left as
 it is): the same layout and names, in PyTorch, with the Pallas TPU
@@ -9,15 +9,22 @@ tensor every kernel launches its hand-written CUDA form; on a CPU tensor
 it runs its plain PyTorch twin (``ops/dispatch.py``). The package imports
 ``torch`` and never ``jax`` or ``sparse_solvers_tpu``.
 
-Ported so far: ``Homotopy`` and ``Omp`` (with ``picks`` for gOMP) batched
-fast-mode solves through their slot-space drivers (``solve_batch``,
-``solve_batch_on_device``) at every precision, including ``"certified"``.
-Everything else raises ``NotImplementedError`` naming its ROADMAP.md item.
+Ported so far: ``Homotopy`` on one device — ``solve``, ``solve_batch``
+(the slot-space driver, or the per-lane core in the sparse-matvec regime),
+``solve_path``, ``solve_path_batch``, the ``*_on_device`` entries,
+``update_column``, both modes, float32 and float64, at every precision
+including ``"certified"`` — and ``Omp`` (with ``picks`` for gOMP) batched
+fast-mode solves through its slot-space driver, with ``update_column``;
+the module functions below; the K5 and K6 fused correlation kernels
+(``ops/cuda/kernels.py``) with the roofline module
+(``utils/profiling.py``). Everything else raises ``NotImplementedError``
+naming its ROADMAP.md item.
 """
 
-from .api import Homotopy, Omp
+from .api import (Homotopy, Omp, densify_batch, densify_path, lasso_at,
+                  lasso_at_batch, norm_l1, reconstruct_signal)
 from .reports import HomotopyReport, OmpReport
-from .solvers.homotopy_batch import densify_batch
 
 __all__ = ["Homotopy", "HomotopyReport", "Omp", "OmpReport",
-           "densify_batch"]
+           "densify_batch", "densify_path", "lasso_at", "lasso_at_batch",
+           "norm_l1", "reconstruct_signal"]

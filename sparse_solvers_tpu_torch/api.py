@@ -1,37 +1,46 @@
 """Public solver API — the port of ``sparse_solvers_tpu/api.py``'s
-``Homotopy`` and ``Omp`` throughput subsets.
+``Homotopy`` façade and ``Omp``'s batched subset.
 
-Ported: each constructor's validation, the lazy Gram, the routing and
-``explain``, ``_fn``, ``solve_batch`` with the certified re-solve merge,
-``solve_batch_on_device``, ``_certified_error``, ``_certified_l2_error``,
-``_default_tolerance`` and ``_check_max_iterations``. Every other route
-raises ``NotImplementedError`` naming its ROADMAP.md item; the port adds
-no feature the JAX package lacks.
+Ported: ``Homotopy`` whole on one device except the host engine (every
+``solve*`` route, both modes, float32 and float64, with or without a
+Gram), ``Omp``'s batch driver route and ``update_column``, and the module
+functions ``densify_batch``, ``densify_path``, ``lasso_at``,
+``lasso_at_batch``, ``reconstruct_signal`` and ``norm_l1``. Every other
+route raises ``NotImplementedError`` naming its ROADMAP.md item; the port
+adds no feature the JAX package lacks.
 
 PyTorch semantics against the JAX façade:
   * ``Homotopy(A, ..., device="cuda")`` and ``Omp(A, ..., device="cuda")``
     place A, and lazily AᵀA, on that device; the default is "cuda", so a
     missing GPU is an error, never a silent CPU run. On a CPU device every
     kernel runs its plain twin.
-  * ``engine="auto"`` always takes the device driver (the JAX package's
-    auto-routing of tiny problems to the C++ host engine comes with
-    ROADMAP.md Queue 1 item 4).
+  * ``engine="auto"`` runs the torch routes: the slot-space driver or the
+    per-lane core. The JAX package's auto-routing of tiny problems to the
+    C++ host engine is ROADMAP.md Queue 1 item 4's open part.
   * PyTorch runs eagerly: ``_fn`` returns a plain function, nothing is
-    compiled or cached per shape, and results are tensors on the device.
+    compiled or cached per shape, and solutions are tensors on the device.
+    The regularization-path helpers work on the host, in numpy, as the
+    JAX package's do.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .linalg import norms as _norms
 from .ops import blas as _blas
 from .ops import dispatch as _dispatch
+from .ops.operators import DenseOperator
+from .reports import HomotopyReport
+from .solvers import homotopy as _homotopy
 from .solvers import homotopy_batch as _homotopy_batch
 from .solvers import omp_batch as _omp_batch
 from .utils import ndview
 
 # Gram matrices above this byte size are not precomputed automatically
-# (n² entries; 1 GiB ⇒ n ≈ 16384 in float32) — api.py:47.
+# (n² entries of the dtype's size; 1 GiB ⇒ n ≈ 16384 in float32) —
+# api.py:47.
 _GRAM_AUTO_BYTES = 1 << 30
 
 _PRECISION_VALUES = ("highest", "high", "default", "certified")
@@ -91,29 +100,66 @@ def _merge_lanes(sel: torch.Tensor, new, old, dense: bool):
             torch.where(sel[:, None], new[1], old[1]))
 
 
+def _first_lane(out):
+    """A one-lane result without its lane axis (nested tuples kept)."""
+    if isinstance(out, tuple):
+        parts = [_first_lane(o) for o in out]
+        return type(out)(*parts) if hasattr(out, "_fields") else tuple(parts)
+    return out[0]
+
+
+def _numpy(a) -> np.ndarray:
+    """A tensor (any device) or array-like as a host numpy array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _update_column_impl(solver, j: int, col) -> None:
+    """Replace column j of A with ``col`` and rewrite the cached Gram's row
+    and column incrementally — one Aᵀ·v product instead of the O(mn²)
+    rebuild (api.py:215-252). A and G are replaced by updated copies, not
+    written in place: A may be the caller's own tensor."""
+    if not (0 <= j < solver._n):
+        raise ValueError(f"column index {j} out of range [0, {solver._n})")
+    v = ndview.as_vector(col, dtype=solver.dtype, size=solver._m,
+                         device=solver._device)
+    A = solver._A.clone()
+    A[:, j] = v
+    solver._A = A
+    if solver._G_cache is not None:
+        # the new Gram row/col g = Aᵀ_new v, at the precision the lazy
+        # Gram was built at (the updated column lands vᵀv on the diagonal)
+        with _blas.precision_scope("highest"):
+            g = _blas.xgemv(A, v, trans=True)
+        G = solver._G_cache.clone()
+        G[:, j] = g
+        G[j, :] = g
+        solver._G_cache = G
+
+
 class _GramSolver:
     """What the façades share: A on the solver's device and its lazy
     Gram (the JAX package's ``_lazy_gram``)."""
 
-    def _load(self, A, device, gram: bool | None, core_item: int) -> None:
-        """Place A on ``device``; raise for what only unported routes
-        serve: float64 A (the per-lane core, ROADMAP.md Queue 1
-        ``core_item``) and no Gram (item 5)."""
+    def _load(self, A, device) -> None:
+        """Place A on ``device``."""
         self._device = torch.device(device)
         if self._device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"device={device!r} but torch sees no CUDA device; pass "
                 "device='cpu' to run the plain PyTorch twins")
         self._A = ndview.as_matrix(A, device=self._device)
-        if self._A.dtype != torch.float32:
-            raise _unported("float64 A (the per-lane core)", core_item)
         self._m, self._n = self._A.shape
-        if gram is None:
-            gram = self._n * self._n * 4 <= _GRAM_AUTO_BYTES
-        if not gram:
-            raise _unported("the gram-free route (gram=False or n² above "
-                            "1 GiB)", 5)
         self._G_cache = None
+
+    def _gram_auto(self, gram: bool | None) -> bool:
+        """``gram=None`` is on while n² values of A's dtype fit in 1 GiB
+        (api.py:352-355)."""
+        if gram is None:
+            return (self._n * self._n * self._A.element_size()
+                    <= _GRAM_AUTO_BYTES)
+        return bool(gram)
 
     @classmethod
     def from_numpy(cls, A, G=None, **kwargs):
@@ -122,18 +168,27 @@ class _GramSolver:
         packages step from identical state."""
         solver = cls(A, **kwargs)
         if G is not None:
-            solver._G_cache = ndview.as_matrix(G, dtype=torch.float32,
+            solver._G_cache = ndview.as_matrix(G, dtype=solver.dtype,
                                                device=solver._device)
         return solver
 
     @property
-    def _G(self) -> torch.Tensor:
-        """AᵀA, computed on first use at fp32 with TF32 off — the JAX
-        package's ``_lazy_gram`` at HIGHEST."""
-        if self._G_cache is None:
+    def _G(self) -> torch.Tensor | None:
+        """AᵀA, computed on first use at full precision (TF32 off) — the
+        JAX package's ``_lazy_gram`` at HIGHEST; None when the solver runs
+        without a Gram."""
+        if self._gram_enabled and self._G_cache is None:
             with _blas.precision_scope("highest"):
                 self._G_cache = _blas.xgemm(self._A, self._A, trans_a=True)
         return self._G_cache
+
+    def update_column(self, j: int, col) -> None:
+        """Replace column j of the sensing matrix on the solver's device
+        (gallery churn): the cached Gram's row and column are rewritten
+        from one Aᵀ·col product instead of the O(mn²) rebuild. No
+        reference analog: its solver holds a const view of A
+        (policies.h:42)."""
+        _update_column_impl(self, j, col)
 
     @property
     def shape(self):
@@ -149,14 +204,14 @@ class _GramSolver:
 
 
 class Homotopy(_GramSolver):
-    """Homotopy path-following solver over a fixed sensing matrix A (m×n),
-    batched fast mode on the slot-space driver.
+    """Homotopy path-following solver over a fixed sensing matrix A (m×n).
 
     Parameters follow ``sparse_solvers_tpu.Homotopy``; ``device`` (default
-    "cuda") is where A, the Gram and every solve live. Ported: float32 A,
-    ``mode="fast"``, ``engine`` "auto" or "jax" (both run the device
-    driver here), every ``precision`` including "certified", and a Gram
-    (the default while n² float32 fits in 1 GiB).
+    "cuda") is where A, the Gram and every solve live. Batches outside the
+    sparse-matvec regime take the slot-space driver (float32, fast mode,
+    with a Gram); single solves, the sparse-matvec regime, float64 and
+    ``mode="exact"`` take the per-lane core. ``engine`` "auto" and "jax"
+    both run these torch routes.
     """
 
     def __init__(self, A, k_max: int | None = None, mode: str = "fast",
@@ -180,23 +235,28 @@ class Homotopy(_GramSolver):
                 "precision='certified' runs the path at one-pass "
                 "precision; mode='exact' (operation-for-operation "
                 "reference parity) requires 'high' or 'highest'")
-        if mode == "exact":
-            raise _unported("mode='exact' (the per-lane core)", 4)
         if engine == "native":
             raise _unported("engine='native' (the C++ host engine)", 4)
         if mesh is not None:
             raise _unported("mesh= (multi-GPU solving)", 10)
-        self._load(A, device, gram, core_item=4)
+        self._load(A, device)
         self._k_max = k_max
-        self._precision = precision or "certified"
+        self._mode = mode
+        self._precision = precision or ("certified" if mode == "fast"
+                                        else "highest")
+        # exact mode never reads the Gram (api.py:355)
+        self._gram_enabled = self._gram_auto(gram) and mode == "fast"
 
     def _plan(self, max_iterations: int, batch: int | None):
         """(k_max, sparse_matvec, batch_native) for a solve of this shape,
         shared by ``_fn`` and ``explain`` (api.py:420-449)."""
         k_max = self._k_max or min(self._n, max_iterations + 1)
-        sparse = ((batch or 1) * k_max < 2 * self._m and k_max < self._n)
-        batch_native = _homotopy_batch.route_batch_native(
-            batch, self._n, self._A.dtype, sparse)
+        sparse = (self._mode == "fast"
+                  and (batch or 1) * k_max < 2 * self._m
+                  and k_max < self._n)
+        batch_native = (self._mode == "fast"
+                        and _homotopy_batch.route_batch_native(
+                            batch, self._n, self._A.dtype, sparse))
         return k_max, sparse, batch_native
 
     def explain(self, batch: int | None = None,
@@ -204,26 +264,33 @@ class Homotopy(_GramSolver):
         """Execution plan for a solve of this configuration: which
         formulation runs and which form of each kernel. No side effects."""
         k_max, sparse, batch_native = self._plan(max_iterations, batch)
+        if batch_native:
+            formulation = ("slot-space batch driver (scan + transition "
+                           "kernels)")
+        elif batch is not None:
+            formulation = "batched while-loop core (vmapped core's lanes)"
+        else:
+            formulation = "while-loop core"
         plan = {
             "engine": "torch",
             "device": str(self._device),
-            "mode": "fast",
+            "mode": self._mode,
             "precision": self._precision,
-            "gram": True,
+            "gram": self._gram_enabled,
             "k_max": k_max,
             "sparse_matvec": sparse,
             "batch_native": batch_native,
-            "formulation": ("slot-space batch driver (scan + transition "
-                            "kernels)" if batch_native else
-                            "unported (per-lane core, ROADMAP.md Queue 1 "
-                            "item 4)"),
+            "formulation": formulation,
+            # the core runs plain products and gathers, as the JAX core
+            # runs no Pallas kernel
+            "kernels": {},
         }
         path_precision = self._precision
         if self._precision == "certified":
             path_precision = plan["path_precision"] = "default"
             plan["certificate"] = ("‖Aᵀ(y−Ax)‖∞ at high precision; "
-                                   "solve_batch re-solves lanes that miss "
-                                   "the tolerance")
+                                   "solve/solve_batch re-solve lanes that "
+                                   "miss the tolerance")
         if batch_native:
             plan["capacity_tiers"] = _homotopy_batch._plan_tiers(
                 k_max, max_iterations, None)
@@ -234,36 +301,135 @@ class Homotopy(_GramSolver):
         return plan
 
     def _fn(self, max_iterations: int, batch: int | None,
-            precision: str | None = None, dense: bool = True):
-        """The solve function for this shape: ``run(A, G, Y, tol)`` →
-        (X, report), or ((values, indices), report) when ``dense=False``.
-        ``precision`` overrides the instance setting (the certified
-        re-solve uses it)."""
+            precision: str | None = None, record_path: bool = False,
+            dense: bool = True):
+        """The solve function for this shape: ``run(A, G, y, tol)`` →
+        (x, report), or ((values, indices), report) when ``dense=False``,
+        or (x, report, histories) with ``record_path``. ``y`` is (m,) for
+        ``batch=None`` and (batch, m) otherwise. ``precision`` overrides
+        the instance setting (the certified re-solve uses it)."""
         _check_max_iterations(max_iterations)
         precision = precision or self._precision
         certified = precision == "certified"
+        if record_path and certified:
+            raise ValueError(
+                "record_path needs a concrete precision "
+                "(solve_path resolves certified to 'high')")
         # certified: the path runs at one-pass precision, the certificate
         # below restores trust in the result
         path_precision = "default" if certified else precision
         k_max, sparse, batch_native = self._plan(max_iterations, batch)
-        if not batch_native:
-            raise _unported(
-                f"the sparse-matvec regime (batch·k_max = {batch * k_max} "
-                f"< 2m = {2 * self._m}; the per-lane core)", 4)
+        # an empty batch takes the driver's early return, which needs no G
+        if batch_native and not self._gram_enabled and batch:
+            raise _unported("the gram-free driver route (gram=False or n² "
+                            "above 1 GiB, outside the sparse-matvec "
+                            "regime)", 5)
 
-        def run(A, G, Y, tol):
+        def path(A, G, Y, tol):
             with _blas.precision_scope(path_precision):
-                out, rep = _homotopy_batch.solve_homotopy_batch(
-                    A, G, Y, tol, max_iterations, k_max, dense=dense)
+                if batch_native:
+                    return _homotopy_batch.solve_homotopy_batch(
+                        A, G, Y, tol, max_iterations, k_max, dense=dense,
+                        record_path=record_path)
+                return _homotopy.solve_homotopy_core(
+                    DenseOperator(A, G), self._n, Y, tol, max_iterations,
+                    k_max, mode=self._mode, sparse_matvec=sparse,
+                    record_path=record_path, compact=not dense)
+
+        def run(A, G, y, tol):
+            Y = y if batch is not None else y[None]
+            out = path(A, G, Y, tol)
             if certified:
-                x = (out if dense else
-                     _homotopy_batch.densify_batch(out[0], out[1], self._n))
+                X, rep = out
+                x = (X if dense else
+                     _homotopy_batch.densify_batch(X[0], X[1], self._n))
                 err = _certified_error(A, x, Y)
-                rep = rep._replace(solution_error=err.to(
+                out = X, rep._replace(solution_error=err.to(
                     rep.solution_error.dtype))
-            return out, rep
+            if batch is None:  # one lane: drop the lane axis
+                out = _first_lane(out)
+            return out
 
         return run
+
+    def solve(self, b, tolerance: float | None = None,
+              max_iterations: int = 100):
+        """Solve min‖x‖₁ s.t. Ax = b; returns (x, HomotopyReport) with x
+        an (n,) tensor on the solver's device. Under "certified", a
+        solution whose certificate misses the tolerance is re-solved at
+        "high" (api.py:605-641)."""
+        y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
+                             device=self._device)
+        tol = self._tol(tolerance)
+        _check_max_iterations(max_iterations)
+        x, rep = self._fn(max_iterations, batch=None)(self._A, self._G, y,
+                                                      tol)
+        it, err = int(rep.iter), float(rep.solution_error)
+        # NaN-safe predicate; a lane that exhausted max_iterations is
+        # reported as-is — no precision fixes an iteration budget
+        if (self._precision == "certified" and not (err <= tol)
+                and it < max_iterations):
+            x, rep = self._fn(max_iterations, batch=None,
+                              precision="high")(self._A, self._G, y, tol)
+            it, err = int(rep.iter), float(rep.solution_error)
+        return x, HomotopyReport(iter=it, solution_error=err)
+
+    def solve_on_device(self, y: torch.Tensor, tolerance,
+                        max_iterations: int = 100):
+        """Solve for an (m,) tensor already on the solver's device, without
+        the certified re-solve: under "certified" the report's
+        solution_error is the certificate, to be checked against the
+        tolerance downstream. Returns (x, HomotopyReportArrays of 0-d
+        tensors)."""
+        return self._fn(max_iterations, batch=None)(self._A, self._G, y,
+                                                    tolerance)
+
+    def solve_path(self, b, tolerance: float | None = None,
+                   max_iterations: int = 100):
+        """The LARS/LASSO regularization path (api.py:643-682): every
+        breakpoint of min ½‖y−Ax‖² + λ‖x‖₁ the loop visits as λ decreases
+        from ‖Aᵀy‖∞ to the tolerance. Returns ``(lambdas, Xs,
+        HomotopyReport)`` as numpy arrays, λ_t the loop's own
+        ‖Aᵀ(y−Ax_t)‖∞ at each committed breakpoint (a break iteration's
+        duplicate row trimmed). ``precision="certified"`` records at
+        "high": the per-breakpoint iterates are the product here."""
+        y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
+                             device=self._device)
+        tol = self._tol(tolerance)
+        _check_max_iterations(max_iterations)
+        precision = ("high" if self._precision == "certified"
+                     else self._precision)
+        _, rep, (hv, hi, hl) = self._fn(
+            max_iterations, batch=None, precision=precision,
+            record_path=True)(self._A, self._G, y, tol)
+        it = int(rep.iter)
+        lam, Xs = densify_path(hl, hv, hi, it, self._n)
+        return lam, Xs, HomotopyReport(iter=it,
+                                       solution_error=float(
+                                           rep.solution_error))
+
+    def solve_path_batch(self, B, tolerance: float | None = None,
+                         max_iterations: int = 100):
+        """Batched regularization paths (see ``solve_path``) over signals
+        B of shape (batch, m) (api.py:684-716). Returns ``(lambdas,
+        values, indices, reports)`` as numpy arrays in the compact
+        slot-space form: lane ``l``'s breakpoint ``t`` holds values
+        ``values[l, t, j]`` at columns ``indices[l, t, j]`` (sentinel n),
+        ``lambdas[l, t]`` its λ; rows past ``reports.iter[l]`` are
+        padding. ``densify_path`` rebuilds one lane's dense path."""
+        Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
+                                   device=self._device)
+        tol = self._tol(tolerance)
+        _check_max_iterations(max_iterations)
+        precision = ("high" if self._precision == "certified"
+                     else self._precision)
+        _, rep, (hv, hi, hl) = self._fn(
+            max_iterations, batch=Y.shape[0], precision=precision,
+            record_path=True)(self._A, self._G, Y, tol)
+        return (_numpy(hl), _numpy(hv), _numpy(hi),
+                _homotopy.HomotopyReportArrays(
+                    iter=_numpy(rep.iter),
+                    solution_error=_numpy(rep.solution_error)))
 
     def solve_batch(self, B, tolerance: float | None = None,
                     max_iterations: int = 100, dense: bool = True):
@@ -314,23 +480,6 @@ class Homotopy(_GramSolver):
         report), or ((values, indices), report) when ``dense=False``."""
         return self._fn(max_iterations, batch=Y.shape[0], dense=dense)(
             self._A, self._G, Y, tolerance)
-
-    # --- routes not ported yet (ROADMAP.md Queue 1) -----------------------
-
-    def solve(self, b, tolerance=None, max_iterations: int = 100):
-        raise _unported("Homotopy.solve (the per-lane core)", 4)
-
-    def solve_on_device(self, y, tolerance, max_iterations: int = 100):
-        raise _unported("Homotopy.solve_on_device (the per-lane core)", 4)
-
-    def solve_path(self, b, tolerance=None, max_iterations: int = 100):
-        raise _unported("Homotopy.solve_path (record_path)", 4)
-
-    def solve_path_batch(self, B, tolerance=None, max_iterations: int = 100):
-        raise _unported("Homotopy.solve_path_batch (record_path)", 4)
-
-    def update_column(self, j: int, col) -> None:
-        raise _unported("Homotopy.update_column", 4)
 
 
 class Omp(_GramSolver):
@@ -394,7 +543,13 @@ class Omp(_GramSolver):
             raise _unported("mesh= (multi-GPU solving)", 10)
         if gram is True:
             raise _unported("gram=True (the vmapped Gram-gather OMP core)", 6)
-        self._load(A, device, gram, core_item=6)
+        self._load(A, device)
+        if self._A.dtype != torch.float32:
+            raise _unported("float64 A (the per-lane OMP core)", 6)
+        if not self._gram_auto(gram):
+            raise _unported("the gram-free route (gram=False or n² above "
+                            "1 GiB)", 5)
+        self._gram_enabled = True
         if picks > self._n:
             raise ValueError(
                 f"picks must be <= n = {self._n} (each round selects "
@@ -540,5 +695,102 @@ class Omp(_GramSolver):
     def solve_on_device(self, y, tolerance, max_iterations: int = 100):
         raise _unported("Omp.solve_on_device (the per-lane OMP core)", 6)
 
-    def update_column(self, j: int, col) -> None:
-        raise _unported("Omp.update_column", 4)
+
+def densify_batch(values, indices, n: int) -> torch.Tensor:
+    """Scatter a compact slot-space batch solution (``solve_batch(...,
+    dense=False)``) back to the dense (batch, n) form."""
+    return _homotopy_batch.densify_batch(values, indices, n)
+
+
+def densify_path(lambdas, values, indices, iters: int, n: int):
+    """Reconstruct one dense regularization path from the compact
+    slot-space history (``Homotopy.solve_path`` / ``solve_path_batch``),
+    on the host (api.py:2125-2147).
+
+    lambdas: (H,), values/indices: (H, k_max) with sentinel index n for
+    empty slots; ``iters`` the lane's report.iter. Returns (lambdas (T,),
+    Xs (T, n)) as numpy arrays, with a break-terminated path's duplicate
+    last row trimmed."""
+    lambdas, values, indices = map(_numpy, (lambdas, values, indices))
+    T = int(iters) + 1
+    Xs = np.zeros((T, n), values.dtype)
+    hv, hi = values[:T], indices[:T]
+    valid = hi < n
+    rows = np.broadcast_to(np.arange(T)[:, None], hi.shape)
+    Xs[rows[valid], hi[valid]] = hv[valid]
+    lam = lambdas[:T]
+    # a break-terminated path's final iteration commits nothing and
+    # records a duplicate of the previous breakpoint — trim it
+    if T >= 2 and lam[-1] == lam[-2] and np.array_equal(Xs[-1], Xs[-2]):
+        lam, Xs = lam[:-1], Xs[:-1]
+    return lam, Xs
+
+
+def lasso_at(lambdas, Xs, lam):
+    """Exact LASSO solution at an arbitrary λ from a recorded path
+    (api.py:2150-2181): x(λ) is piecewise linear between breakpoints, so
+    it is the linear interpolation over the first bracket [λ_{t+1}, λ_t]
+    that contains λ. λ ≥ λ₀ gives x = 0; λ below the recorded end gives
+    the final iterate. numpy in, numpy out."""
+    lambdas, Xs = _numpy(lambdas), _numpy(Xs)
+    lam = float(lam)
+    if lam >= lambdas[0]:
+        return np.zeros_like(Xs[0])
+    for t in range(len(lambdas) - 1):
+        hi, lo = lambdas[t], lambdas[t + 1]
+        if hi >= lam >= lo and hi > lo:
+            w = (hi - lam) / (hi - lo)
+            return Xs[t] + w * (Xs[t + 1] - Xs[t])
+    return Xs[-1].copy()
+
+
+def lasso_at_batch(lambdas, values, indices, iters, n: int, lam):
+    """Batched ``lasso_at`` over ``Homotopy.solve_path_batch``'s compact
+    histories: one dense (batch, n) numpy solution at λ, each lane
+    interpolated on its own path from its two bracketing rows
+    (api.py:2184-2225)."""
+    lambdas, values, indices, iters = map(_numpy, (lambdas, values,
+                                                   indices, iters))
+    lam = float(lam)
+    out = np.zeros((lambdas.shape[0], n), values.dtype)
+
+    def row(vi, ii):
+        r = np.zeros(n, values.dtype)
+        valid = ii < n
+        r[ii[valid]] = vi[valid]
+        return r
+
+    for i in range(lambdas.shape[0]):
+        T = int(iters[i]) + 1
+        la, hv, hi = lambdas[i, :T], values[i, :T], indices[i, :T]
+        # densify_path's trim of a break-terminated lane's duplicate row
+        if (T >= 2 and la[-1] == la[-2]
+                and np.array_equal(row(hv[-1], hi[-1]),
+                                   row(hv[-2], hi[-2]))):
+            la, hv, hi = la[:-1], hv[:-1], hi[:-1]
+        if lam >= la[0]:
+            continue  # the λ-max end: x = 0
+        for t in range(len(la) - 1):
+            top, bot = la[t], la[t + 1]
+            if top >= lam >= bot and top > bot:
+                w = (top - lam) / (top - bot)
+                x0 = row(hv[t], hi[t])
+                out[i] = x0 + w * (row(hv[t + 1], hi[t + 1]) - x0)
+                break
+        else:
+            out[i] = row(hv[-1], hi[-1])  # below the recorded end
+    return out
+
+
+def reconstruct_signal(A, x, device="cuda") -> np.ndarray:
+    """y = A @ x on ``device`` (reference: ss.h:79-84), returned as a
+    numpy array."""
+    A = ndview.as_matrix(A, device=device)
+    xv = ndview.as_vector(x, dtype=A.dtype, size=A.shape[1], device=device)
+    return _numpy(_blas.xgemv(A, xv))
+
+
+def norm_l1(A, device="cuda") -> np.ndarray:
+    """L1-normalize the columns of A on ``device`` (reference:
+    ss.h:88-93, norms.h), returned as a numpy array."""
+    return _numpy(_norms.l1_columns(ndview.as_matrix(A, device=device)))

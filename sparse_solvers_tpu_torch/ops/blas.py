@@ -13,7 +13,9 @@ this layer maps the same names onto H100 arithmetic:
                      is allowed there because every bf16 value is exact
                      in TF32 (8-bit exponent, 7 ≤ 10 mantissa bits), so
                      the tensor cores compute exactly the products of the
-                     rounded operands.
+                     rounded operands. The precision names the passes of
+                     an fp32 product: float64 operands multiply at full
+                     precision under every name, as XLA multiplies them.
 
 ``precision_scope`` pins ``torch.backends.cuda.matmul.allow_tf32`` for its
 extent and restores the caller's setting afterwards. The scope stack is
@@ -63,12 +65,40 @@ def precision_scope(precision: str):
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def _operands(*tensors: torch.Tensor):
+    """The operands as the scope's precision multiplies them: float32
+    rounded to bf16 (and back) at "default", as they are otherwise."""
+    if current_precision() == "default":
+        return [t.to(torch.bfloat16).to(t.dtype)
+                if t.dtype == torch.float32 else t for t in tensors]
+    return list(tensors)
+
+
 def xgemm(A: torch.Tensor, B: torch.Tensor, *, trans_a: bool = False,
           trans_b: bool = False) -> torch.Tensor:
     """C = op(A) @ op(B) at the scope's precision, in A's dtype."""
-    Ma = A.T if trans_a else A
-    Mb = B.T if trans_b else B
-    if current_precision() == "default":
-        Ma = Ma.to(torch.bfloat16).to(A.dtype)
-        Mb = Mb.to(torch.bfloat16).to(A.dtype)
+    Ma, Mb = _operands(A.T if trans_a else A, B.T if trans_b else B)
     return torch.matmul(Ma, Mb)
+
+
+def xgemv(A: torch.Tensor, x: torch.Tensor, *,
+          trans: bool = False) -> torch.Tensor:
+    """y = A @ x (or Aᵀ @ x) at the scope's precision, batched over any
+    leading axes the two share: A (..., p, q), x (..., q) → (..., p)."""
+    M, v = _operands(A.mT if trans else A, x)
+    return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
+
+
+def xdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """xᵀy over the last axis at the scope's precision."""
+    u, v = _operands(x, y)
+    return (u * v).sum(dim=-1)
+
+
+def xger(alpha, x: torch.Tensor, y: torch.Tensor,
+         A: torch.Tensor) -> torch.Tensor:
+    """A + alpha·x·yᵀ (rank-1 update), batched over leading axes; a tensor
+    ``alpha`` carries one value per batch entry."""
+    if isinstance(alpha, torch.Tensor):
+        alpha = alpha[..., None, None]
+    return A + alpha * (x.unsqueeze(-1) * y.unsqueeze(-2))

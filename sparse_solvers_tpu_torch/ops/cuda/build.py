@@ -26,7 +26,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "sparse_solvers_tpu_torch"
-SOURCES = ("normal_bf16.cu", "scan.cu", "transition.cu", "omp_insert.cu")
+SOURCES = ("normal_bf16.cu", "scan.cu", "transition.cu", "omp_insert.cu",
+           "fused_corr.cu")
+HEADERS = ("tile_gemm.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC")
 
@@ -43,6 +45,10 @@ _SIGNATURES = {
     "ss_transition_smem_bytes": (_I,),
     # inv, u1, kk, vtv, b_act, doins, coef, deg, b, K, stream
     "ss_omp_insert": (_P,) * 8 + (_I, _I, _P),
+    # D, A, T scratch, Q, b, m, n, bf16_mode, stream
+    "ss_normal_matvec_f32": (_P,) * 4 + (_I,) * 4 + (_P,),
+    # X, Y, A, R scratch, C, b, m, n, bf16_mode, stream
+    "ss_residual_correlation_f32": (_P,) * 5 + (_I,) * 4 + (_P,),
 }
 
 _lock = threading.Lock()
@@ -62,7 +68,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libsstorch_{h.hexdigest()[:16]}.so"

@@ -1,4 +1,8 @@
-"""K1 — the bf16 normal-equation product q = AᵀA·d of every iteration.
+"""K1, K5 and K6 — the fused correlation products of
+``sparse_solvers_tpu/ops/pallas/kernels.py``.
+
+K1 is the bf16 normal-equation product q = AᵀA·d of every driver
+iteration.
 
 Port of ``sparse_solvers_tpu/ops/pallas/kernels.py::normal_matvec_fused_bf16``
 (the Pallas kernel at :160-241). The CUDA form is ``csrc/normal_bf16.cu``:
@@ -11,6 +15,17 @@ over, and what bounds the kernel on the H100).
 plain PyTorch, fp32 products with TF32 off. A bare bf16 ``torch.matmul``
 would round Q to bf16 as well, so the twin multiplies the bf16 values as
 fp32 tensors.
+
+K5 ``normal_matvec_fused`` (Q = (D·Aᵀ)·A) and K6
+``residual_correlation_fused`` (C = (Y − X·Aᵀ)·A) are the f32 forms, the
+Pallas kernels at :136 and :267; their CUDA form is ``csrc/fused_corr.cu``,
+two launches of one tile GEMM through a (b, m) scratch. Their precision is
+``blas.current_precision()`` at call time, as the Pallas wrappers read it at
+trace time: "high" and "highest" are fp32 FMAs with no TF32; "default"
+rounds A, D (X) and the intermediate D·Aᵀ (Y − X·Aᵀ) to bf16 and sums in
+fp32, as K1 does. The JAX wrappers' VMEM eligibility gate does not carry
+over: a CUDA tensor launches the hand kernel for every f32 shape, and any
+other dtype raises. ``*_plain`` are their twins.
 """
 
 from __future__ import annotations
@@ -21,6 +36,8 @@ from .. import blas, dispatch
 from . import build
 
 NAME = "normal_matvec_fused_bf16"
+K5_NAME = "normal_matvec_fused"
+K6_NAME = "residual_correlation_fused"
 
 
 def normal_matvec_fused_bf16_plain(A16: torch.Tensor,
@@ -66,3 +83,86 @@ def normal_matvec_fused_bf16(A16: torch.Tensor,
     build.check(rc, NAME)
     dispatch.launches[NAME] += 1
     return Q
+
+
+def normal_matvec_fused_plain(A: torch.Tensor,
+                              D: torch.Tensor) -> torch.Tensor:
+    """Q = (D·Aᵀ)·A as two products at the scope's precision — the JAX
+    wrapper's two-gemm form, which at "default" rounds A, D and the
+    intermediate to bf16: K5's twin."""
+    return blas.xgemm(blas.xgemm(D, A, trans_b=True), A)
+
+
+def residual_correlation_fused_plain(A: torch.Tensor, X: torch.Tensor,
+                                     Y: torch.Tensor) -> torch.Tensor:
+    """C = (Y − X·Aᵀ)·A as two products at the scope's precision: K6's
+    twin."""
+    return blas.xgemm(Y - blas.xgemm(X, A, trans_b=True), A)
+
+
+def _check_fused(A: torch.Tensor, V: torch.Tensor,
+                 Y: torch.Tensor | None = None) -> None:
+    """Shapes K5 and K6 take on any device: A (m, n), V (b, n), Y (b, m)."""
+    if A.dim() != 2:
+        raise ValueError(f"A must be 2-d, got shape {tuple(A.shape)}")
+    m, n = A.shape
+    if V.dim() != 2 or V.shape[1] != n:
+        raise ValueError(f"expected a (b, {n}) operand against A of shape "
+                         f"{tuple(A.shape)}, got {tuple(V.shape)}")
+    if Y is not None and tuple(Y.shape) != (V.shape[0], m):
+        raise ValueError(f"Y must have shape {(V.shape[0], m)}, got "
+                         f"{tuple(Y.shape)}")
+
+
+def _launch_fused(name: str, entry: str, A: torch.Tensor, V: torch.Tensor,
+                  Y: torch.Tensor | None) -> torch.Tensor:
+    """Check the f32 operands of K5 (Y None) or K6 and launch the kernel."""
+    ops = (A, V) if Y is None else (A, V, Y)
+    for t in ops:
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} takes float32 tensors, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
+    (b, n), m = V.shape, A.shape[0]
+    if max(b, m, n) >= 2**31 or -(-n // 32) > 65535 or -(-m // 32) > 65535:
+        raise ValueError(f"shape (b={b}, m={m}, n={n}) exceeds the "
+                         "kernel's grid")
+    out = torch.empty((b, n), dtype=torch.float32, device=V.device)
+    if b == 0 or n == 0:
+        return out
+    if m == 0:
+        return out.zero_()
+    bf16_mode = blas.current_precision() == "default"
+    scratch = torch.empty((b, m), device=V.device, dtype=(
+        torch.bfloat16 if bf16_mode else torch.float32))
+    lib = build.library()
+    with torch.cuda.device(V.device):
+        stream = torch.cuda.current_stream(V.device).cuda_stream
+        ptrs = [t.data_ptr() for t in ((V,) if Y is None else (V, Y))]
+        rc = getattr(lib, entry)(*ptrs, A.data_ptr(), scratch.data_ptr(),
+                                 out.data_ptr(), b, m, n, int(bf16_mode),
+                                 stream)
+    build.check(rc, name)
+    dispatch.launches[name] += 1
+    return out
+
+
+def normal_matvec_fused(A: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """K5: Q (b, n) = (D·Aᵀ)·A for A (m, n) and D (b, n) f32, at the
+    scope's precision. CUDA tensors launch the hand kernel; CPU tensors
+    run the twin."""
+    _check_fused(A, D)
+    if not dispatch.use_cuda_kernel(A, D):
+        return normal_matvec_fused_plain(A, D)
+    return _launch_fused(K5_NAME, "ss_normal_matvec_f32", A, D, None)
+
+
+def residual_correlation_fused(A: torch.Tensor, X: torch.Tensor,
+                               Y: torch.Tensor) -> torch.Tensor:
+    """K6: C (b, n) = (Y − X·Aᵀ)·A for A (m, n), X (b, n) and Y (b, m)
+    f32, at the scope's precision. CUDA tensors launch the hand kernel;
+    CPU tensors run the twin."""
+    _check_fused(A, X, Y)
+    if not dispatch.use_cuda_kernel(A, X, Y):
+        return residual_correlation_fused_plain(A, X, Y)
+    return _launch_fused(K6_NAME, "ss_residual_correlation_f32", A, X, Y)

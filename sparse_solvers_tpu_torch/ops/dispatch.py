@@ -33,6 +33,12 @@ KERNELS = {
     "omp_insert": (
         "sparse_solvers_tpu_torch/csrc/omp_insert.cu",
         "sparse_solvers_tpu/ops/pallas/omp_insert.py:108"),
+    "normal_matvec_fused": (
+        "sparse_solvers_tpu_torch/csrc/fused_corr.cu",
+        "sparse_solvers_tpu/ops/pallas/kernels.py:136"),
+    "residual_correlation_fused": (
+        "sparse_solvers_tpu_torch/csrc/fused_corr.cu",
+        "sparse_solvers_tpu/ops/pallas/kernels.py:267"),
 }
 
 launches = dict.fromkeys(KERNELS, 0)

@@ -24,7 +24,7 @@ PyTorch idiom against the JAX form:
     re-entered by its init and body, as JAX captures it at trace time.
 
 Left out here (ROADMAP.md Queue 1): the sharded modes and ``psum`` (item
-10), ``record_path`` (item 4) and the gram-free route ``G=None`` (item 5).
+10) and the gram-free route ``G=None`` (item 5).
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..linalg import active_set
 from ..ops import blas
 from ..ops.cuda import kernels as _kern
 from ..ops.cuda import scan as _scan
@@ -61,28 +62,16 @@ def _take1(M: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return M.gather(1, idx.long()[:, None])[:, 0]
 
 
-def _slots_to_dense(values: torch.Tensor, indices: torch.Tensor,
-                    n: int) -> torch.Tensor:
-    """Scatter slot values (b, K) to dense (b, n) at columns ``indices``;
-    sentinel slots (index n) contribute nothing. Live indices are unique
-    per lane, so the add writes each value exactly once and the sentinel
-    slots add exact zeros at a clamped column."""
-    out = torch.zeros((values.shape[0], n), dtype=values.dtype,
-                      device=values.device)
-    if n:
-        live = indices < n
-        out.scatter_add_(1, indices.clamp(max=n - 1).long(),
-                         torch.where(live, values, torch.zeros_like(values)))
-    return out
-
-
 def route_batch_native(lanes: int | None, n: int, dtype,
                        sparse: bool) -> bool:
-    """The routing rule for the slot-space solver. The port has no
-    per-lane core yet (ROADMAP.md Queue 1 item 4), so every float32 batch
+    """The routing rule for the slot-space solver: every float32 batch
     outside the sparse-matvec regime runs here, on any device and for any
     n — the kernels handle ragged shapes themselves — and so does an
-    empty batch (its own early return). No environment override."""
+    empty batch (its own early return). The sparse regime, float64 and
+    single solves take the per-lane core (solvers/homotopy.py). No
+    environment override, and no TPU envelope: the JAX package keeps the
+    vmapped core off the TPU, where its Pallas kernels would only
+    interpret."""
     return (lanes is not None and dtype == torch.float32
             and (lanes == 0 or not sparse))
 
@@ -157,7 +146,8 @@ def _embed(s: _BState, K2: int, n: int) -> _BState:
 
 def solve_homotopy_batch(A: torch.Tensor, G: torch.Tensor | None,
                          Y: torch.Tensor, tolerance, max_iterations: int,
-                         k_max: int, ladder=None, dense: bool = True):
+                         k_max: int, ladder=None, dense: bool = True,
+                         record_path: bool = False):
     """Fast-mode batched homotopy — the slot-space throughput driver.
 
     A: (m, n) f32; G = AᵀA (n, n); Y: (b, m), all on one device. Returns
@@ -167,34 +157,74 @@ def solve_homotopy_batch(A: torch.Tensor, G: torch.Tensor | None,
     ``dense=False`` skips the final (b, n) scatter and returns the
     compact slot-space solution ``((values, indices), report)`` — values
     (b, k_max) at columns indices (b, k_max), sentinel ``n`` marking
-    empty slots; ``densify_batch`` rebuilds the dense X exactly."""
+    empty slots; ``densify_batch`` rebuilds the dense X exactly.
+
+    ``record_path=True`` also records the LARS/LASSO breakpoint history
+    the loop visits (see solvers/homotopy.py ``record_path``) and returns
+    it as a third element ``(hist_v (b, T, k_max), hist_i (b, T, k_max),
+    hist_l (b, T))`` with T = max_iterations + 1: row 0 is the λ-max end
+    (x = 0, λ0 = ‖Aᵀy‖∞), and each live lane's iteration writes its
+    post-transition slot state at row ``it``; frozen lanes write
+    nothing."""
     n = A.shape[1]
     b = Y.shape[0]
+    T = max_iterations + 1
+    dev = A.device
     if b == 0:
         report = HomotopyReportArrays(
-            iter=torch.zeros(0, dtype=torch.int32, device=A.device),
-            solution_error=torch.zeros(0, dtype=A.dtype, device=A.device))
-        out = (torch.zeros((0, n), dtype=A.dtype, device=A.device) if dense
-               else (torch.zeros((0, k_max), dtype=A.dtype, device=A.device),
+            iter=torch.zeros(0, dtype=torch.int32, device=dev),
+            solution_error=torch.zeros(0, dtype=A.dtype, device=dev))
+        out = (torch.zeros((0, n), dtype=A.dtype, device=dev) if dense
+               else (torch.zeros((0, k_max), dtype=A.dtype, device=dev),
                      torch.full((0, k_max), n, dtype=torch.int32,
-                                device=A.device)))
+                                device=dev)))
+        if record_path:
+            return out, report, (
+                torch.zeros((0, T, k_max), dtype=A.dtype, device=dev),
+                torch.full((0, T, k_max), n, dtype=torch.int32, device=dev),
+                torch.zeros((0, T), dtype=A.dtype, device=dev))
         return out, report
     tiers = _plan_tiers(k_max, max_iterations, ladder)
-    state = None
+    state = hist = None
     for t, Kt in enumerate(tiers):
         # non-final tiers stop before any lane could need slot Kt
         cap = None if t == len(tiers) - 1 else Kt - 1
         init, body, lane_live = make_stepper(
             A, G, Y, tolerance, max_iterations, Kt, it_cap=cap)
         state = init() if state is None else _embed(state, Kt, n)
-        while bool(lane_live(state).any()):
+        if record_path:
+            hist = _grow_history(hist, state, T, Kt, n)
+        while bool((live := lane_live(state)).any()):
             state = body(state)
+            if record_path:
+                lanes = live.nonzero()[:, 0]
+                rows = state.it[lanes].long()
+                for h, v in zip(hist, (state.x_act, state.indices,
+                                       state.c_inf)):
+                    h[lanes, rows] = v[lanes]
     if dense:
-        out = _slots_to_dense(state.x_act, state.indices, n)
+        out = active_set.scatter(state.x_act, state.indices, n)
     else:
         out = (state.x_act, state.indices)
-    return out, HomotopyReportArrays(iter=state.it,
-                                     solution_error=state.c_inf)
+    report = HomotopyReportArrays(iter=state.it, solution_error=state.c_inf)
+    if record_path:
+        return out, report, hist
+    return out, report
+
+
+def _grow_history(hist, state: _BState, T: int, K: int, n: int):
+    """The breakpoint history at capacity K: started from the initial
+    state (row 0), or the previous tier's zero-padded (sentinel n)."""
+    if hist is None:
+        b = state.c.shape[0]
+        hv = state.x_act.new_zeros((b, T, K))
+        hi = torch.full((b, T, K), n, dtype=torch.int32,
+                        device=state.c.device)
+        hl = state.c_inf.new_zeros((b, T))
+        hl[:, 0] = state.c_inf
+        return hv, hi, hl
+    p = K - hist[0].shape[2]
+    return (F.pad(hist[0], (0, p)), F.pad(hist[1], (0, p), value=n), hist[2])
 
 
 def densify_batch(values, indices, n: int) -> torch.Tensor:
@@ -203,7 +233,7 @@ def densify_batch(values, indices, n: int) -> torch.Tensor:
     ``n`` = empty slot. Takes numpy arrays or tensors."""
     values = torch.as_tensor(values)
     indices = torch.as_tensor(indices, device=values.device)
-    return _slots_to_dense(values, indices, n)
+    return active_set.scatter(values, indices, n)
 
 
 def make_stepper(A: torch.Tensor, G: torch.Tensor | None, Y: torch.Tensor,
@@ -275,7 +305,7 @@ def make_stepper(A: torch.Tensor, G: torch.Tensor | None, Y: torch.Tensor,
         live = lane_live(s)
 
         # q = AᵀA d: scatter the slot direction, then K1 or two gemms
-        D = _slots_to_dense(s.d_act, s.indices, n)
+        D = active_set.scatter(s.d_act, s.indices, n)
         with blas.precision_scope(prec):
             q = qprod(D)
 

@@ -38,10 +38,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..linalg import active_set
 from ..ops import blas
 from ..ops.cuda import omp_insert as _oins
-from .homotopy_batch import (_plan_tiers, _slots_to_dense, _take1,
-                             gram_slot_gather, make_qprod)
+from .homotopy_batch import _plan_tiers, _take1, gram_slot_gather, make_qprod
 from .omp import OmpReportArrays
 
 
@@ -199,7 +199,7 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
         rss1 = yty - (b_act1 * coef1).sum(dim=1)
 
         # correlation update from the new coefficients (one q pass)
-        D = _slots_to_dense(
+        D = active_set.scatter(
             torch.where(stepped[:, None], coef1, torch.zeros_like(coef1)),
             ind1, n)
         q = qprod(D)
@@ -248,7 +248,7 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
         while bool(lane_live(state, cap).any()):
             state = body(state, cap)
 
-    X = _slots_to_dense(state.coef, state.indices, n)
+    X = active_set.scatter(state.coef, state.indices, n)
     # the certificate: ‖y − Ax‖₂ per lane from the returned solution
     with blas.precision_scope(cert_prec):
         R = Y - blas.xgemm(X, A, trans_b=True)

@@ -72,3 +72,16 @@ def as_signal_batch(Y, *, dtype: torch.dtype | None = None,
             f"Expected signals of length {size} but got {Y.shape[1]}"
         )
     return _to_tensor(Y, 2, dtype, device)
+
+
+def as_vector(x, *, dtype: torch.dtype | None = None,
+              size: int | None = None, device=None) -> torch.Tensor:
+    """Normalize a 1-d array-like to a tensor on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+    if x.ndim != 1:
+        raise _dim_error(1, x.ndim)
+    if size is not None and x.shape[0] != size:
+        raise ValueError(
+            f"Expected a vector of length {size} but got {x.shape[0]}")
+    return _to_tensor(x, 1, dtype, device)

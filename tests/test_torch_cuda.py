@@ -11,8 +11,11 @@ not. Tolerances: K1 1e-3·max|Q| (a P element may land on the neighbouring
 bf16 value when the fp32 sums run in another order), K2 idx and gamma
 exact, K3 indices and deg exact, floats 1e-5 of the tensor's scale, frozen
 lanes bit-identical; K4 deg exact, floats 1e-5 of the tensor's scale,
-lanes that are not gated bit-identical. Drivers on the card against the
-same drivers on the CPU twins at "high": iterations exact, X atol 1e-5.
+lanes that are not gated bit-identical; K5 and K6 1e-5·max|ref| at
+"highest" and 1e-3·max|ref| at "default" (bf16 flips of the
+intermediate, as K1), repeat runs bit-identical. Drivers and the per-lane
+core on the card against the same code on the CPU twins at "high":
+iterations exact, X atol 1e-5 (float64: 1e-10).
 """
 
 import numpy as np
@@ -220,3 +223,122 @@ def test_certified_omp_on_card_launches_k1_and_k4(dev, picks):
     for lane in range(16):
         top = set(np.argsort(-np.abs(X[lane]))[:8].tolist())
         assert top == set(np.flatnonzero(Xt[lane]).tolist())
+
+
+FUSED_SHAPES = [(72, 200, 5), (96, 256, 8), (64, 130, 1), (1, 8, 70),
+                (130, 67, 65), (33, 100, 17), (300, 520, 3)]
+
+
+@pytest.mark.parametrize("m,n,b", FUSED_SHAPES)
+@pytest.mark.parametrize("precision,rel", [("highest", 1e-5),
+                                           ("default", 1e-3)])
+def test_k5_k6_kernels_match_twins(dev, m, n, b, precision, rel):
+    from sparse_solvers_tpu_torch.ops import blas
+    from sparse_solvers_tpu_torch.ops.cuda import kernels as K
+    g = torch.Generator(device=dev).manual_seed(m * n + b)
+    A = torch.randn(m, n, generator=g, device=dev)
+    D = torch.randn(b, n, generator=g, device=dev)
+    Y = torch.randn(b, m, generator=g, device=dev)
+    with blas.precision_scope(precision):
+        Q = _counted(K.K5_NAME, lambda: K.normal_matvec_fused(A, D))
+        C = _counted(K.K6_NAME,
+                     lambda: K.residual_correlation_fused(A, D, Y))
+        for got, want, again in (
+                (Q, K.normal_matvec_fused_plain(A, D),
+                 K.normal_matvec_fused(A, D)),
+                (C, K.residual_correlation_fused_plain(A, D, Y),
+                 K.residual_correlation_fused(A, D, Y))):
+            assert got.shape == (b, n) and got.dtype == torch.float32
+            err = float((got - want).abs().max())
+            assert err <= rel * float(want.abs().max()), err
+            assert torch.equal(got, again)
+
+
+def test_k5_k6_edges_and_refusals(dev):
+    from sparse_solvers_tpu_torch.ops import dispatch
+    from sparse_solvers_tpu_torch.ops.cuda import kernels as K
+    A = torch.randn(16, 24, device=dev)
+    before = dict(dispatch.launches)
+    assert K.normal_matvec_fused(A, torch.zeros(0, 24, device=dev)).shape \
+        == (0, 24)
+    C = K.residual_correlation_fused(torch.zeros(0, 24, device=dev),
+                                     torch.randn(3, 24, device=dev),
+                                     torch.zeros(3, 0, device=dev))
+    assert C.shape == (3, 24) and not C.any()
+    assert dispatch.launches == before
+    with pytest.raises(ValueError, match="float32"):
+        K.normal_matvec_fused(A.double(), torch.zeros(2, 24, device=dev,
+                                                      dtype=torch.float64))
+    with pytest.raises(ValueError, match="float32"):
+        K.residual_correlation_fused(A, torch.zeros(2, 24, device=dev),
+                                     torch.zeros(2, 16, device=dev,
+                                                 dtype=torch.float16))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.normal_matvec_fused(A.T.contiguous().T, torch.zeros(2, 24,
+                                                              device=dev))
+
+
+@pytest.mark.parametrize("dtype,atol", [(np.float32, 1e-5),
+                                        (np.float64, 1e-10)])
+def test_core_on_card_matches_cpu_twins(dev, dtype, atol):
+    """A single solve, a sparse-regime batch and exact mode on the card
+    against the CPU: equal iterations, X within atol; the core launches
+    none of the kernels."""
+    from sparse_solvers_tpu_torch import Homotopy
+    from sparse_solvers_tpu_torch.ops import dispatch
+    A, Y, Xt = compressive_problem(128, 256, 6, 4, seed=2)
+    A, Y = A.astype(dtype), Y.astype(dtype)
+    tol = 1e-3 if dtype == np.float32 else 1e-9
+    out = {}
+    for where in (dev, "cpu"):
+        dispatch.reset_launches()
+        fast = Homotopy(A, k_max=24, precision="high", device=where)
+        exact = Homotopy(A, mode="exact", precision="highest", device=where)
+        x, r = fast.solve(Y[0], tol, 40)
+        X, R = fast.solve_batch(Y, tol, 40)
+        xe, re_ = exact.solve(Y[1], tol, 40)
+        out[str(where)] = ([x.cpu().numpy(), X.cpu().numpy(),
+                            xe.cpu().numpy()],
+                           [r.iter, R.iter.tolist(), re_.iter])
+        assert not any(dispatch.launches.values())
+    (xs_g, it_g), (xs_c, it_c) = out[str(dev)], out["cpu"]
+    assert it_g == it_c
+    for a, b in zip(xs_g, xs_c):
+        np.testing.assert_allclose(a, b, atol=atol)
+
+
+def test_update_column_on_card_matches_rebuild(dev):
+    from sparse_solvers_tpu_torch import Homotopy, Omp
+    A, Y, _ = compressive_problem(64, 128, 4, 32, seed=4)
+    rng = np.random.RandomState(1)
+    col = rng.randn(64).astype(np.float32)
+    col /= np.linalg.norm(col)
+    A2 = A.copy()
+    A2[:, 9] = col
+    for cls in (Homotopy, Omp):
+        s = cls(A, precision="high", device=dev)
+        _ = s._G
+        s.update_column(9, col)
+        G2 = cls(A2, precision="high", device=dev)._G
+        assert float((s._G - G2).abs().max()) <= 1e-5
+        Xa, ra = s.solve_batch(Y, 1e-3, 40)
+        Xb, rb = cls(A2, precision="high", device=dev).solve_batch(Y, 1e-3,
+                                                                  40)
+        assert torch.equal(ra.iter, rb.iter)
+        assert float((Xa - Xb).abs().max()) <= 1e-5
+
+
+def test_profiling_measures_on_card(dev):
+    """utils/profiling on the card (tests/test_profiling.py's rates
+    check): consistent rates, and the H100 spec when the card is one."""
+    from sparse_solvers_tpu_torch.utils import profiling
+    x = torch.ones(512, 512, device=dev)
+    r = profiling.measure(lambda: x @ x, flops=2 * 512 ** 3,
+                          bytes=3 * 512 * 512 * 4, reps=5)
+    assert r.seconds > 0
+    np.testing.assert_allclose(r.tflops, r.flops / r.seconds / 1e12)
+    np.testing.assert_allclose(r.gbps, r.bytes / r.seconds / 1e9)
+    assert "TFLOP/s" in str(r) and "GB/s" in str(r)
+    if "h100" in torch.cuda.get_device_name(0).lower():
+        assert profiling.detect_chip() is profiling.CHIPS["h100"]
+        assert 0 < r.fraction_of_peak("highest") < 1

@@ -403,8 +403,6 @@ UNPORTED = {
     "solve": lambda A: pt.Omp(A, device="cpu").solve(A[:, 0]),
     "solve_on_device": lambda A: pt.Omp(A, device="cpu")
     .solve_on_device(torch.from_numpy(A[:, 0]), TOL),
-    "update_column": lambda A: pt.Omp(A, device="cpu")
-    .update_column(0, A[:, 1]),
     "mode_exact": lambda A: pt.Omp(A, mode="exact", device="cpu"),
     "engine_native": lambda A: pt.Omp(A, engine="native", device="cpu"),
     "mesh": lambda A: pt.Omp(A, mesh=object(), device="cpu"),
