@@ -5,9 +5,12 @@
 Builds the port's hand-written Hopper kernels from ``sparse_solvers_tpu_torch/
 csrc`` with nvcc and holds each against its plain PyTorch twin on the card
 at the shapes of the main paths (K3 also at K=200, past a block's shared
-memory; K5 and K6 at b = 8, 64 and 256, at "highest" and "default"). Then
-it drives the main paths on a 4096x8192 f32 sensing matrix with k=64-sparse
-signals, tol 1e-2:
+memory; K5 and K6 at b = 8, 64 and 256, at "highest" and "default"); K1's
+line adds its TFLOP/s, its share of its bound, its factor against two bf16
+matmuls and its ring tile. Then it drives the main paths on a 4096x8192
+f32 sensing matrix with k=64-sparse signals, tol 1e-2, each timed and then
+profiled once (``utils/profiling.trace``: device ms per hand kernel, K1's
+share, total device ms and wall ms):
 
   * ``Homotopy`` batch 256, k_max 96, 128 iterations, "certified" (the
     workload of ``bench.py``);
@@ -133,7 +136,8 @@ def check_k1(dev, card):
     check(bool(torch.isfinite(Q).all()), "K1: non-finite output")
     check(err <= limit, f"K1: max |Q - twin| = {err} > {limit}")
     check(torch.equal(Q, K1.normal_matvec_fused_bf16(A16, D)),
-          "K1: two runs on the same inputs differ (it has no split-K)")
+          "K1: two runs on the same inputs differ (it uses no split-K and "
+          "no atomics, so each output is one fixed-order sum)")
     ms = time_ms(lambda: K1.normal_matvec_fused_bf16(A16, D))
     plain = time_ms(lambda: K1.normal_matvec_fused_bf16_plain(A16, D))
     # the library yardstick: two bf16 cuBLAS products, P = D16·A16ᵀ then
@@ -141,13 +145,18 @@ def check_k1(dev, card):
     D16 = D.to(torch.bfloat16)
     library = time_ms(lambda: torch.matmul(torch.matmul(D16, A16.T), A16))
     # A16 read once, D read, Q written; 4·b·m·n bf16 tensor-core operations
-    b_ms, b_by = bound(4 * BATCH * M * N, M * N * 2 + 2 * BATCH * N * 4,
-                       989e12)
+    flops = 4 * BATCH * M * N
+    b_ms, b_by = bound(flops, M * N * 2 + 2 * BATCH * N * 4, 989e12)
+    plan = K1.k1_launch_plan(BATCH, M, N)
     phase(f"K1 normal_matvec_fused_bf16 b={BATCH} m={M} n={N}: max|err| "
           f"{err:.3e} <= {limit:.3e} (1e-3*max|Q|), repeat run "
-          f"bit-identical; kernel {ms:.4f} ms, twin {plain:.4f} ms, two "
-          f"bf16 matmuls {library:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
-          f"[{card}]")
+          f"bit-identical; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s, {100 * b_ms / ms:.1f}% of its bound, "
+          f"{ms / library:.2f}x the two bf16 matmuls), twin {plain:.4f} ms, "
+          f"two bf16 matmuls {library:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+          f"ring tile {'x'.join(map(str, plan.tile))}, {plan.stages} "
+          f"stages, {plan.threads} threads, {plan.smem_bytes} B shared, "
+          f"grids {plan.grid1} and {plan.grid2} [{card}]")
     return result(err, ms, plain, library, b_ms, b_by)
 
 
@@ -520,11 +529,59 @@ def true_supports():
     return sups
 
 
+# device kernels by the port's kernel they belong to (K1 is its D round
+# and its two ring passes)
+DEVICE_KERNELS = {
+    "normal_matvec_fused_bf16": ("round_to_bf16_kernel",
+                                 "gemm_bf16_async_kernel"),
+    "find_max_gamma_fused": ("find_max_gamma_kernel",),
+    "transition": ("transition_kernel",),
+    "omp_insert": ("omp_insert_kernel",),
+}
+
+
+def profile_path(name, solver, Yd, card, max_iter):
+    """One ``solve_batch_on_device`` under ``utils/profiling.trace``:
+    device ms per hand kernel (K1's share first) beside the total device
+    ms (every kernel, copy and fill on the card) and the profiled wall
+    ms."""
+    from sparse_solvers_tpu_torch.utils import profiling
+    torch.cuda.synchronize()
+    with profiling.trace() as prof:
+        t0 = time.perf_counter()
+        solver.solve_batch_on_device(Yd, TOL, max_iter)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    groups = dict.fromkeys(DEVICE_KERNELS, 0.0)
+    calls = dict.fromkeys(DEVICE_KERNELS, 0)
+    total = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = evt.self_device_time_total / 1e3
+        total += ms
+        for kname, parts in DEVICE_KERNELS.items():
+            if any(part in evt.key for part in parts):
+                groups[kname] += ms
+                calls[kname] += evt.count
+    k1 = groups.pop("normal_matvec_fused_bf16")
+    k1_calls = calls["normal_matvec_fused_bf16"]
+    check(k1 > 0 and total > 0, f"{name}: the profiler saw no K1 device "
+          f"time ({groups}, total {total})")
+    rest = ", ".join(f"{k} {v:.3f} ms in {calls[k]}"
+                     for k, v in groups.items() if v)
+    phase(f"{name} profile (one solve_batch_on_device under "
+          f"profiling.trace): K1 {k1:.3f} ms in {k1_calls} device kernels "
+          f"({100 * k1 / total:.1f}% of device time); "
+          f"{rest}; other {total - k1 - sum(groups.values()):.3f} ms; total "
+          f"device {total:.3f} ms; profiled wall {wall:.3f} ms [{card}]")
+
+
 def time_path(name, solver, Y, dev, card, max_iter, runs: int = 10):
     """Wall time of ``solve_batch_on_device`` per batch, each run fenced
     by ``torch.cuda.synchronize()``, after one warm-up; counts the lanes
     whose certificate misses the tolerance (``solve_batch`` re-solves
-    them)."""
+    them). Then one profiled run (``profile_path``)."""
     Yd = torch.from_numpy(Y).to(dev)
     solver.solve_batch_on_device(Yd, TOL, max_iter)
     torch.cuda.synchronize()
@@ -543,6 +600,7 @@ def time_path(name, solver, Y, dev, card, max_iter, runs: int = 10):
           f"{q3 * 1e3:.3f}), {BATCH / dt:.1f} solves/s, iterations max "
           f"{int(r.iter.max())}, lanes needing the re-solve {resolve} of "
           f"{runs * BATCH} [{card}]")
+    profile_path(name, solver, Yd, card, max_iter)
 
 
 def run_path(name, solver, Y, dev, card, max_iter, kernels):

@@ -35,8 +35,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argument types (every pointer and the stream as void*)
 _SIGNATURES = {
-    # D, A16, P scratch, Q, b, m, n, stream
-    "ss_normal_matvec_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # D, A16, D16 and P scratches, Q, b, m, n, stream
+    "ss_normal_matvec_bf16": (_P,) * 5 + (_I, _I, _I, _P),
     # q, c, mask, c_inf, x_act, d_act, indices, gamma, idx, b, n, K, stream
     "ss_find_max_gamma": (_P,) * 9 + (_I, _I, _I, _P),
     # inv, gk, x, d, ca, ind, u1, idx, kk, gamma, vtv, cnew, live, doins,

@@ -6,10 +6,12 @@ iteration.
 
 Port of ``sparse_solvers_tpu/ops/pallas/kernels.py::normal_matvec_fused_bf16``
 (the Pallas kernel at :160-241). The CUDA form is ``csrc/normal_bf16.cu``:
-two launches of one bf16 tensor-core tile GEMM, P = bf16(bf16(D)·A16ᵀ) into
-a (b, m) bf16 scratch, then Q = P·A16 in f32 (the file's header says why
-the TPU kernel's one-pass, output-resident decomposition does not carry
-over, and what bounds the kernel on the H100).
+D rounded to bf16 into a (b, n) scratch, then two launches of one bf16
+tensor-core tile GEMM fed by a cp.async ring, P = bf16(D16·A16ᵀ) into a
+(b, m) bf16 scratch, then Q = P·A16 in f32 (the file's header says why the
+TPU kernel's one-pass, output-resident decomposition does not carry over,
+and what bounds the kernel on the H100). ``k1_launch_plan`` gives the
+launch geometry the wrapper checks.
 
 ``normal_matvec_fused_bf16_plain`` is its twin: the same roundings in
 plain PyTorch, fp32 products with TF32 off. A bare bf16 ``torch.matmul``
@@ -30,6 +32,8 @@ other dtype raises. ``*_plain`` are their twins.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from .. import blas, dispatch
@@ -38,6 +42,42 @@ from . import build
 NAME = "normal_matvec_fused_bf16"
 K5_NAME = "normal_matvec_fused"
 K6_NAME = "residual_correlation_fused"
+
+# K1's ring tile GEMM; csrc/tile_gemm.cuh's namespace ring states the same
+# constants (tests/test_torch_k1_plan.py holds the two together)
+K1_TILE = (128, 64, 32)   # BM (batch lanes), BN, BK
+K1_STAGES = 4
+K1_THREADS = 256
+MAX_GRID_Y = 65535
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """K1's launches for one (b, m, n): two passes of the ring tile GEMM
+    (grids (x, y), batch tiles along x) and the bf16 scratch shapes."""
+    tile: tuple[int, int, int]
+    stages: int
+    threads: int
+    grid1: tuple[int, int]    # P (b, m) = D16·A16ᵀ
+    grid2: tuple[int, int]    # Q (b, n) = P·A16
+    smem_bytes: int
+    d16_shape: tuple[int, int]
+    p_shape: tuple[int, int]
+
+
+def k1_launch_plan(b: int, m: int, n: int) -> K1Plan:
+    """The launch geometry of K1 at (b, m, n); raises ValueError where a
+    grid or an index would pass the card's limits."""
+    bm, bn, bk = K1_TILE
+    stage = 2 * (bm * (bk + 8) + max(bn * (bk + 8), bk * (bn + 8)))
+    smem = max(K1_STAGES * stage, 4 * bm * (bn + 4))
+    grid1 = (-(-b // bm), -(-m // bn))
+    grid2 = (-(-b // bm), -(-n // bn))
+    if max(b, m, n) >= 2**31 or max(grid1[1], grid2[1]) > MAX_GRID_Y:
+        raise ValueError(f"shape (b={b}, m={m}, n={n}) exceeds the "
+                         "kernel's grid")
+    return K1Plan(K1_TILE, K1_STAGES, K1_THREADS, grid1, grid2, smem,
+                  (b, n), (b, m))
 
 
 def normal_matvec_fused_bf16_plain(A16: torch.Tensor,
@@ -65,21 +105,20 @@ def normal_matvec_fused_bf16(A16: torch.Tensor,
     if not (A16.is_contiguous() and D.is_contiguous()):
         raise ValueError("A16 and D must be contiguous")
     (b, n), m = D.shape, A16.shape[0]
-    if max(b, m, n) >= 2**31 or -(-n // 64) > 65535 or -(-m // 64) > 65535:
-        raise ValueError(f"shape (b={b}, m={m}, n={n}) exceeds the "
-                         "kernel's grid")
+    plan = k1_launch_plan(b, m, n)
     Q = torch.empty((b, n), dtype=torch.float32, device=D.device)
     if b == 0 or n == 0:
         return Q
     if m == 0:
         return Q.zero_()
-    P = torch.empty((b, m), dtype=torch.bfloat16, device=D.device)
+    D16 = torch.empty(plan.d16_shape, dtype=torch.bfloat16, device=D.device)
+    P = torch.empty(plan.p_shape, dtype=torch.bfloat16, device=D.device)
     lib = build.library()
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream(D.device).cuda_stream
         rc = lib.ss_normal_matvec_bf16(D.data_ptr(), A16.data_ptr(),
-                                       P.data_ptr(), Q.data_ptr(),
-                                       b, m, n, stream)
+                                       D16.data_ptr(), P.data_ptr(),
+                                       Q.data_ptr(), b, m, n, stream)
     build.check(rc, NAME)
     dispatch.launches[NAME] += 1
     return Q

@@ -7,8 +7,10 @@ there without the suite's jax conftest:
 
 The shapes are ragged on purpose (n not a multiple of 8, K=13) to reach the
 kernels' masked edges, which chip_smoke.py's aligned main-path shapes do
-not. Tolerances: K1 1e-3·max|Q| (a P element may land on the neighbouring
-bf16 value when the fp32 sums run in another order), K2 idx and gamma
+not; K1 also runs a ragged second batch tile (b=130), bases off 16 bytes,
+an aligned 256x512x1024 and a bit-identical repeat run. Tolerances: K1
+1e-3·max|Q| (a P element may land on the neighbouring bf16 value when
+the fp32 sums run in another order), K2 idx and gamma
 exact, K3 indices and deg exact, floats 1e-5 of the tensor's scale, frozen
 lanes bit-identical; K4 deg exact, floats 1e-5 of the tensor's scale,
 lanes that are not gated bit-identical; K5 and K6 1e-5·max|ref| at
@@ -57,6 +59,42 @@ def test_k1_kernel_matches_twin(dev, m, n, b):
     assert Q.shape == (b, n) and Q.dtype == torch.float32
     err = float((Q - want).abs().max())
     assert err <= 1e-3 * float(want.abs().max()), err
+
+
+def _k1_case(dev, m, n, b, offset=0):
+    """A16 (m, n) bf16 and D (b, n) f32 on the card, seeded; with `offset`
+    each starts that many elements into its storage, so neither base is
+    16-byte aligned."""
+    g = torch.Generator(device=dev).manual_seed(m * n + b + offset)
+    A = torch.randn(m * n + offset, generator=g, device=dev)
+    A16 = A.to(torch.bfloat16)[offset:].view(m, n)
+    D = torch.randn(b * n + offset, generator=g, device=dev)[offset:]
+    return A16, D.view(b, n)
+
+
+@pytest.mark.parametrize("m,n,b,offset", [
+    (512, 1024, 256, 0),   # aligned: many ring passes, 2x8 and 2x16 tiles
+    (96, 256, 130, 0),     # the second batch tile holds 2 lanes
+    (72, 200, 130, 0),
+    (96, 256, 130, 1),     # bases off 16 bytes: element-wise staging
+    (40, 72, 9, 3)])
+def test_k1_ring_tiles_match_twin(dev, m, n, b, offset):
+    from sparse_solvers_tpu_torch.ops.cuda import kernels as K1
+    A16, D = _k1_case(dev, m, n, b, offset)
+    assert A16.is_contiguous() and D.is_contiguous()
+    Q = _counted(K1.NAME, lambda: K1.normal_matvec_fused_bf16(A16, D))
+    want = K1.normal_matvec_fused_bf16_plain(A16, D)
+    err = float((Q - want).abs().max())
+    assert err <= 1e-3 * float(want.abs().max()), err
+
+
+def test_k1_repeat_runs_bit_identical(dev):
+    """No split-K and no atomics: each Q element is one block's
+    fixed-order sum."""
+    from sparse_solvers_tpu_torch.ops.cuda import kernels as K1
+    A16, D = _k1_case(dev, 512, 1024, 256)
+    first = K1.normal_matvec_fused_bf16(A16, D)
+    assert torch.equal(first, K1.normal_matvec_fused_bf16(A16, D))
 
 
 @pytest.mark.parametrize("n", [200, 384])
