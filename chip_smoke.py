@@ -21,7 +21,9 @@ share, total device ms and wall ms):
     ``normal_matvec_fused`` and K6 ``residual_correlation_fused`` at
     b = 8, 64, 256 at both precisions, timed through
     ``utils/profiling.measure`` beside their twins and two-``matmul``
-    library calls, with the roofline share;
+    library calls, with the roofline share, and each case's launch plan
+    (tiles, splits) and the device time of each of its launches in one
+    ``torch.profiler`` call;
   * the per-lane Homotopy core: certified single ``solve``s, an 8-lane
     sparse-regime ``solve_batch``, exact against fast mode, float64, and
     ``solve_path``;
@@ -42,6 +44,7 @@ operations over the H100's peak for their type), then ``{"ok": true,
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -373,11 +376,83 @@ def check_k5_k6(dev, card):
     return errs
 
 
+def short_kernel_name(name: str) -> str:
+    """A device kernel's name without its return type, namespaces and
+    argument list: ``gemm_f32_async_kernel<64, true>``."""
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return re.sub(r"^void |\w+::", "", name)
+
+
+# profiled calls per trace that must see every launch of a call
+PROFILER_TRIES = 3
+
+
+def launch_times(fn):
+    """Each device kernel of one ``fn()`` call under ``profiling.trace``,
+    in launch order: [(short name, device ms)]. A spin kernel goes first
+    (the trace can miss the first kernel it sees) and is left out."""
+    from sparse_solvers_tpu_torch.utils import profiling
+    torch.cuda.synchronize()
+    with profiling.trace() as prof:
+        torch.cuda._sleep(1_000_000)
+        fn()
+        torch.cuda.synchronize()
+    evts = sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "spin" not in e.name),
+                  key=lambda e: e.time_range.start)
+    return [(short_kernel_name(e.name), e.device_time_total / 1e3)
+            for e in evts]
+
+
+def fused_plan_line(name, b, prec, fn, card):
+    """K5's or K6's launch plan at (b, m=M, n=N, prec) and the device time
+    of each of its launches in one profiled call. A trace that holds fewer
+    device kernels than the plan makes (the profiler can drop a short
+    session's records) is taken again, up to ``PROFILER_TRIES`` calls in
+    all; if none holds them all, the line says so and gives no times.
+    Fails if a trace holds a kernel the plan does not make."""
+    from sparse_solvers_tpu_torch.ops.cuda import kernels as K
+    plan = K.fused_launch_plan(b, M, N, prec)
+    s1, s2 = plan.splits
+    # "default" rounds A and the batch operand in one launch and always
+    # sums pass 1's partials (that sum rounds T); a split pass adds its sum
+    want = 2 + (s2 > 1) + (2 if plan.ring == "bf16" else (s1 > 1))
+    parts = (("round_to_bf16_kernel", "gemm_bf16_async_kernel")
+             if plan.ring == "bf16" else ("gemm_f32_async_kernel",))
+    parts += ("sum_splits_kernel",)
+    seen = []
+    for _ in range(PROFILER_TRIES):
+        times = launch_times(fn)
+        seen.append(len(times))
+        check(len(times) <= want
+              and all(any(p in k for p in parts) for k, _ in times),
+              f"{name} b={b} {prec}: the profiler saw device kernels that "
+              f"the plan ({want} launches of {parts}) does not make: {times}")
+        if len(times) == want:
+            break
+    if len(times) == want:
+        per = ", ".join(f"{k} {ms:.4f}" for k, ms in times)
+        timed = (f"device ms per launch: {per} (sum "
+                 f"{sum(ms for _, ms in times):.4f})")
+    else:
+        timed = "device ms per launch not measured"
+    thread = ("" if plan.thread_tile is None else
+              f", {'x'.join(map(str, plan.thread_tile))} per thread")
+    phase(f"{name} b={b} {prec} plan: {plan.ring} ring, tile "
+          f"{'x'.join(map(str, plan.tile))}{thread}, {plan.stages} stages, "
+          f"{plan.threads} threads, {plan.smem_bytes} B shared, S = {s1} "
+          f"and {s2}, grids {plan.grid1} and {plan.grid2}; profiled calls "
+          f"saw {seen} of the plan's {want} device kernels; {timed} "
+          f"[{card}]")
+
+
 def fused_roofline_path(dev, card):
     """The kernel roofline path (benchmarks/bench_kernels.py:53-88): K5
     and K6 timed through ``profiling.measure`` at every b and precision,
-    beside their twins and the library calls, with the roofline share.
-    Returns {name: {(b, precision): (ms, twin_ms, library_ms, bound_ms,
+    beside their twins and the library calls, with the roofline share, and
+    each case's launch plan and the device time of each launch. Returns
+    {name: {(b, precision): (ms, twin_ms, library_ms, bound_ms,
     bound_by)}}."""
     from sparse_solvers_tpu_torch.ops import blas
     from sparse_solvers_tpu_torch.utils import profiling
@@ -408,6 +483,7 @@ def fused_roofline_path(dev, card):
                           f"of the {chip.name} roofline), twin "
                           f"{ms[1]:.4f} ms, two matmuls {ms[2]:.4f} ms, "
                           f"bound {b_s * 1e3:.4f} ms ({by}) [{card}]")
+                    fused_plan_line(name, b, prec, fns[0], card)
     return out
 
 
@@ -544,26 +620,30 @@ def profile_path(name, solver, Yd, card, max_iter):
     """One ``solve_batch_on_device`` under ``utils/profiling.trace``:
     device ms per hand kernel (K1's share first) beside the total device
     ms (every kernel, copy and fill on the card) and the profiled wall
-    ms."""
+    ms. A trace with no K1 device time (the profiler can drop a session's
+    records) is taken again, up to ``PROFILER_TRIES`` runs in all."""
     from sparse_solvers_tpu_torch.utils import profiling
-    torch.cuda.synchronize()
-    with profiling.trace() as prof:
-        t0 = time.perf_counter()
-        solver.solve_batch_on_device(Yd, TOL, max_iter)
+    for _ in range(PROFILER_TRIES):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    groups = dict.fromkeys(DEVICE_KERNELS, 0.0)
-    calls = dict.fromkeys(DEVICE_KERNELS, 0)
-    total = 0.0
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = evt.self_device_time_total / 1e3
-        total += ms
-        for kname, parts in DEVICE_KERNELS.items():
-            if any(part in evt.key for part in parts):
-                groups[kname] += ms
-                calls[kname] += evt.count
+        with profiling.trace() as prof:
+            t0 = time.perf_counter()
+            solver.solve_batch_on_device(Yd, TOL, max_iter)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        groups = dict.fromkeys(DEVICE_KERNELS, 0.0)
+        calls = dict.fromkeys(DEVICE_KERNELS, 0)
+        total = 0.0
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            ms = evt.self_device_time_total / 1e3
+            total += ms
+            for kname, parts in DEVICE_KERNELS.items():
+                if any(part in evt.key for part in parts):
+                    groups[kname] += ms
+                    calls[kname] += evt.count
+        if groups["normal_matvec_fused_bf16"] > 0:
+            break
     k1 = groups.pop("normal_matvec_fused_bf16")
     k1_calls = calls["normal_matvec_fused_bf16"]
     check(k1 > 0 and total > 0, f"{name}: the profiler saw no K1 device "

@@ -83,12 +83,13 @@ def _certified_l2_error(A: torch.Tensor, x: torch.Tensor,
                         y: torch.Tensor) -> torch.Tensor:
     """ℓ₂ residual certificate ‖y − Ax‖₂ at "high" precision (fp32, TF32
     off) — the greedy family's convergence criterion, recomputed from the
-    returned solution, per lane of x (b, n) against y (b, m). Looked up
-    at call time, so tests can replace it to force certificate
-    failures."""
+    returned solution, per lane of x (b, n) against y (b, m): the JAX
+    façade's wrapper of the per-lane OMP core (ROADMAP.md Queue 1 item 6).
+    The driver route reports the driver's own certificate
+    (``omp_batch.l2_certificate``) and never calls this. Looked up at call
+    time, so tests can replace it to force certificate failures."""
     with _blas.precision_scope("high"):
-        r = y - _blas.xgemm(x, A, trans_b=True)
-    return torch.sqrt((r * r).sum(dim=1).clamp(min=0))
+        return _omp_batch.l2_certificate(A, x, y)
 
 
 def _merge_lanes(sel: torch.Tensor, new, old, dense: bool):
@@ -642,8 +643,9 @@ class Omp(_GramSolver):
         the solver's device. ``dense=False`` returns ``(values, indices,
         report)``, the compact slot-space solution; ``densify_batch``
         rebuilds X exactly. Under "certified", each lane's certificate is
-        taken by ``_certified_l2_error``, and lanes that miss the
-        tolerance are re-solved at "high" and merged (api.py:1838-1861)."""
+        the driver's (``omp_batch.l2_certificate``), and lanes that miss
+        the tolerance are re-solved at "high" and merged
+        (api.py:1838-1861)."""
         Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
                                    device=self._device)
         tol = self._tol(tolerance)
@@ -654,11 +656,8 @@ class Omp(_GramSolver):
             # NaN-safe predicate: a non-finite certificate counts as
             # failing; lanes that exhausted max_iterations are reported
             # as-is. The re-solve covers the full batch and the merge
-            # keeps the fast result wherever the certificate held.
-            X = out if dense else _homotopy_batch.densify_batch(
-                out[0], out[1], self._n)
-            rep = rep._replace(solution_error=_certified_l2_error(
-                self._A, X, Y))
+            # keeps the fast result wherever the certificate held. The
+            # driver's report already carries the certificate.
             errs = rep.solution_error.cpu().numpy()
             bad = (~(errs <= tol)) & (rep.iter.cpu().numpy()
                                       < max_iterations)

@@ -45,10 +45,11 @@ _SIGNATURES = {
     "ss_transition_smem_bytes": (_I,),
     # inv, u1, kk, vtv, b_act, doins, coef, deg, b, K, stream
     "ss_omp_insert": (_P,) * 8 + (_I, _I, _P),
-    # D, A, T scratch, Q, b, m, n, bf16_mode, stream
-    "ss_normal_matvec_f32": (_P,) * 4 + (_I,) * 4 + (_P,),
-    # X, Y, A, R scratch, C, b, m, n, bf16_mode, stream
-    "ss_residual_correlation_f32": (_P,) * 5 + (_I,) * 4 + (_P,),
+    # D, A, the A16, D16, P1, T and P2 scratches, Q, b, m, n, bf16_mode,
+    # batch tile, s1, c1, s2, c2, stream
+    "ss_normal_matvec_f32": (_P,) * 8 + (_I,) * 9 + (_P,),
+    # X, Y, A, the A16, X16, P1, R and P2 scratches, C, then as K5
+    "ss_residual_correlation_f32": (_P,) * 9 + (_I,) * 9 + (_P,),
 }
 
 _lock = threading.Lock()

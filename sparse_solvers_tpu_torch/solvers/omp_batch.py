@@ -71,6 +71,17 @@ def _embed_omp(s: _OBState, K2: int, n: int) -> _OBState:
         coef=pad2(s.coef), indices=F.pad(s.indices, (0, p), value=n))
 
 
+def l2_certificate(A: torch.Tensor, X: torch.Tensor,
+                   Y: torch.Tensor) -> torch.Tensor:
+    """ℓ₂ residual certificate ‖y − Ax‖₂ per lane of X (b, n) against
+    Y (b, m), at the scope's precision: the driver's post-loop certificate,
+    which the façade reports as it is (api.py:1726-1727 of the JAX
+    package). Looked up at call time, so tests can replace it to force
+    certificate failures."""
+    R = Y - blas.xgemm(X, A, trans_b=True)
+    return torch.sqrt((R * R).sum(dim=1).clamp(min=0))
+
+
 def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
                     Y: torch.Tensor, tolerance, max_iterations: int,
                     k_max: int, ladder=None, dense: bool = True,
@@ -251,8 +262,7 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
     X = active_set.scatter(state.coef, state.indices, n)
     # the certificate: ‖y − Ax‖₂ per lane from the returned solution
     with blas.precision_scope(cert_prec):
-        R = Y - blas.xgemm(X, A, trans_b=True)
-        err = torch.sqrt((R * R).sum(dim=1).clamp(min=0))
+        err = l2_certificate(A, X, Y)
     report = OmpReportArrays(iter=state.it, solution_error=err)
     if not dense:
         return (state.coef, state.indices), report

@@ -15,9 +15,11 @@ exact, K3 indices and deg exact, floats 1e-5 of the tensor's scale, frozen
 lanes bit-identical; K4 deg exact, floats 1e-5 of the tensor's scale,
 lanes that are not gated bit-identical; K5 and K6 1e-5·max|ref| at
 "highest" and 1e-3·max|ref| at "default" (bf16 flips of the
-intermediate, as K1), repeat runs bit-identical. Drivers and the per-lane
-core on the card against the same code on the CPU twins at "high":
-iterations exact, X atol 1e-5 (float64: 1e-10).
+intermediate, as K1), repeat runs bit-identical, shapes that split the
+depth at each batch tile, and K6 on a residual that cancels most of its
+sum exactly equal to the twin (every value exact in f32). Drivers and
+the per-lane core on the card against the same code on the CPU twins at
+"high": iterations exact, X atol 1e-5 (float64: 1e-10).
 """
 
 import numpy as np
@@ -263,8 +265,11 @@ def test_certified_omp_on_card_launches_k1_and_k4(dev, picks):
         assert top == set(np.flatnonzero(Xt[lane]).tolist())
 
 
+# (m, n, b); the last three split both passes' depth (S > 1) at the batch
+# tiles of 16, 64 and 128 (the last with a ragged second batch tile)
 FUSED_SHAPES = [(72, 200, 5), (96, 256, 8), (64, 130, 1), (1, 8, 70),
-                (130, 67, 65), (33, 100, 17), (300, 520, 3)]
+                (130, 67, 65), (33, 100, 17), (300, 520, 3),
+                (72, 4100, 8), (96, 2050, 64), (40, 1030, 130)]
 
 
 @pytest.mark.parametrize("m,n,b", FUSED_SHAPES)
@@ -290,6 +295,36 @@ def test_k5_k6_kernels_match_twins(dev, m, n, b, precision, rel):
             err = float((got - want).abs().max())
             assert err <= rel * float(want.abs().max()), err
             assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("m,n,b", [(96, 2050, 64), (72, 4100, 8)])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_k6_cancelling_residual_is_exact(dev, m, n, b, precision):
+    """Y = X·Aᵀ + noise cancels all but about 1e-4 of each pass-1 sum,
+    which runs over split depth ranges. A and X are small integers and the
+    noise a multiple of 2⁻¹⁰ below 2⁻², so every product and partial sum
+    is exact in f32 and every operand exact in bf16: the kernel, its twin
+    and a float64 recompute agree bit for bit at both precisions. Σ
+    rounded before Y − Σ, or Y taken once per split, would miss by far."""
+    from sparse_solvers_tpu_torch.ops import blas
+    from sparse_solvers_tpu_torch.ops.cuda import kernels as K
+    rng = np.random.RandomState(m + n + b)
+    A = rng.randint(-4, 5, (m, n)).astype(np.float64)
+    X = rng.randint(-4, 5, (b, n)).astype(np.float64)
+    S = X @ A.T
+    Y = S + rng.randint(-255, 256, (b, m)) / 1024.0
+    want = ((Y - S) @ A).astype(np.float32)
+    assert np.abs(Y - S).max() < 1e-3 * np.abs(S).max()
+    assert np.array_equal(Y.astype(np.float32), Y)   # |S| < 2¹³: exact
+    assert K.fused_launch_plan(b, m, n, precision).splits[0] > 1
+    A, X, Y = (torch.from_numpy(t.astype(np.float32)).to(dev)
+               for t in (A, X, Y))
+    with blas.precision_scope(precision):
+        C = _counted(K.K6_NAME,
+                     lambda: K.residual_correlation_fused(A, X, Y))
+        twin = K.residual_correlation_fused_plain(A, X, Y)
+    assert torch.equal(C, torch.from_numpy(want).to(dev))
+    assert torch.equal(C, twin)
 
 
 def test_k5_k6_edges_and_refusals(dev):

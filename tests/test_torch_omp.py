@@ -293,13 +293,19 @@ def test_certified_certificates_and_supports(problem, monkeypatch, picks):
 def test_certified_resolve_merge(problem, monkeypatch, dense):
     """Forced certificate failures (one too large, one NaN: the NaN-safe
     predicate must count it as failing) re-solve the batch at "high" and
-    merge exactly those lanes (api.py:1838-1861)."""
+    merge exactly those lanes (api.py:1838-1861). The driver's certificate
+    is spoofed on its first call, the certified pass; the re-solve's
+    certificate is reported as it is."""
     A, Y, _ = problem
-    real = papi._certified_l2_error
+    real = POB.l2_certificate
+    calls = []
 
     def spoofed(Am, x, y):
-        err = real(Am, x, y).clone()
-        err[1], err[3] = 1e3, float("nan")
+        err = real(Am, x, y)
+        calls.append(len(calls))
+        if len(calls) == 1:
+            err = err.clone()
+            err[1], err[3] = 1e3, float("nan")
         return err
 
     def run(precision):
@@ -308,9 +314,10 @@ def test_certified_resolve_merge(problem, monkeypatch, dense):
         X = out[0] if dense else pt.densify_batch(out[0], out[1], 256)
         return X, out[-1]
 
-    monkeypatch.setattr(papi, "_certified_l2_error", spoofed)
+    monkeypatch.setattr(POB, "l2_certificate", spoofed)
     Xc, rc = run("certified")
     monkeypatch.undo()
+    assert calls == [0, 1]   # the certified pass and the re-solve
     Xf, rf = run("certified")
     Xh, rh = run("high")
     for lane in range(len(Y)):
@@ -320,6 +327,23 @@ def test_certified_resolve_merge(problem, monkeypatch, dense):
         assert float(rc.solution_error[lane]) == float(
             src_r.solution_error[lane])
     assert np.all(rc.solution_error.numpy() <= TOL)
+
+
+def test_certified_reports_the_driver_certificate(problem, monkeypatch):
+    """On the driver route the façade reports the driver's ℓ₂ certificate
+    as it is and never takes it again (api.py:1726-1727)."""
+    A, Y, _ = problem
+
+    def refuse(*args):
+        raise AssertionError("_certified_l2_error on the driver route")
+
+    monkeypatch.setattr(papi, "_certified_l2_error", refuse)
+    solver = pt.Omp(A, device="cpu")
+    X, rep = solver.solve_batch(Y, TOL, 24)
+    Xd, repd = solver.solve_batch_on_device(torch.from_numpy(Y), TOL, 24)
+    assert np.all(rep.solution_error.numpy() <= TOL)   # no lane re-solved
+    assert torch.equal(X, Xd)
+    assert torch.equal(rep.solution_error, repd.solution_error)
 
 
 def test_exhausted_lanes_are_not_resolved(problem, monkeypatch):

@@ -41,19 +41,19 @@ from sparse_solvers_tpu_torch.ops.cuda import kernels as K1  # noqa: E402
 from sparse_solvers_tpu_torch.utils import profiling  # noqa: E402
 
 B, M, N = 256, 4096, 8192
-MULTIPLY = "    for (int kk = 0; kk < BK; kk += 16) {\n"
-REFILL = "    if (kt + STAGES - 1 < nk) load_slice(kt + STAGES - 1);\n"
+MULTIPLY = "    for (int kk = 0; kk < TBK; kk += 16) {\n"
+REFILL = "    if (kt + TSTAGES - 1 < nk) load_slice(kt + TSTAGES - 1);\n"
 FORMS = {
     "as built": [],
-    "copies only": [(MULTIPLY, MULTIPLY.replace("kk < BK", "kk < 0"))],
+    "copies only": [(MULTIPLY, MULTIPLY.replace("kk < TBK", "kk < 0"))],
     "multiply only": [(REFILL, "")],
     "6 stages": [("constexpr int STAGES = 4;", "constexpr int STAGES = 6;")],
     "BK 64": [("constexpr int BK = 32;", "constexpr int BK = 64;")],
 }
 WRONG = ("copies only", "multiply only")  # leave work out: values are wrong
 PARTS = (("round", "round_to_bf16_kernel"),
-         ("pass 1", "gemm_bf16_async_kernel<__nv_bfloat16, true>"),
-         ("pass 2", "gemm_bf16_async_kernel<float, false>"))
+         ("pass 1", "gemm_bf16_async_kernel<__nv_bfloat16, true, 128, 64, 32, 4, false>"),
+         ("pass 2", "gemm_bf16_async_kernel<float, false, 128, 64, 32, 4, false>"))
 
 
 def form_sources(name: str, edits) -> Path:
