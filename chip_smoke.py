@@ -4,13 +4,15 @@
 
 Builds the port's hand-written Hopper kernels from ``sparse_solvers_tpu_torch/
 csrc`` with nvcc and holds each against its plain PyTorch twin on the card
-at the shapes of the main paths (K3 also at K=200, past a block's shared
-memory; K5 and K6 at b = 8, 64 and 256, at "highest" and "default"); K1's
-line adds its TFLOP/s, its share of its bound, its factor against two bf16
-matmuls and its ring tile. Then it drives the main paths on a 4096x8192
-f32 sensing matrix with k=64-sparse signals, tol 1e-2, each timed and then
-profiled once (``utils/profiling.trace``: device ms per hand kernel, K1's
-share, total device ms and wall ms):
+at the shapes of the main paths (K2 at each Homotopy tier, with ties
+planted across its split chunks; K3 also at K=200, past a block's shared
+memory; K4 at each OMP and gOMP tier; K5 and K6 at b = 8, 64 and 256, at
+"highest" and "default"), each timed beside its bound, with its launch
+plan; K1's line adds its TFLOP/s, its share of its bound, its factor
+against two bf16 matmuls and its ring tile. Then it drives the main paths
+on a 4096x8192 f32 sensing matrix with k=64-sparse signals, tol 1e-2,
+each timed and then profiled once (``utils/profiling.trace``: device ms
+per hand kernel, K1's share, total device ms and wall ms):
 
   * ``Homotopy`` batch 256, k_max 96, 128 iterations, "certified" (the
     workload of ``bench.py``);
@@ -56,12 +58,17 @@ import torch
 
 # the seeded numpy cases the card tests use (numpy only, no jax)
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-from _torch_cases import omp_insert_case, transition_mix  # noqa: E402
+from _torch_cases import (omp_insert_case, scan_split_case,  # noqa: E402
+                          transition_mix)
 
 M, N, K_SPARSE, BATCH = 4096, 8192, 64, 256
 TOL, K_MAX, MAX_ITER = 1e-2, 96, 128
 OMP_MAX_ITER, GOMP_MAX_ITER, GOMP_PICKS = 72, 128, 4
 FUSED_BATCHES, FUSED_PRECISIONS = (8, 64, 256), ("highest", "default")
+# the capacity tiers of the main paths (solvers/homotopy_batch.py::
+# _plan_tiers): K2 on Homotopy's, K4 on OMP's and gOMP's
+SCAN_TIERS = (24, 48, K_MAX)
+OMP_TIERS, GOMP_TIERS = (24, 40, OMP_MAX_ITER), (32, 64, GOMP_MAX_ITER)
 # the (b, precision) of K5's and K6's entries in the JSON line; the phase
 # lines give every case
 FUSED_REPORTED = (64, "highest")
@@ -121,6 +128,30 @@ def time_ms(fn, prepare=None, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
+def device_ms(fn, key: str, prepare=None, calls: int = 10) -> float:
+    """Median device ms of the kernel whose name holds ``key`` over
+    ``calls`` calls of ``fn`` under ``utils/profiling.trace`` (``prepare``,
+    whose kernels are not counted, runs before each): the kernel's own
+    time, without the few µs a pair of CUDA events adds around one launch.
+    NaN where the profiler kept no such kernel."""
+    from sparse_solvers_tpu_torch.utils import profiling
+    for _ in range(3):
+        if prepare:
+            prepare()
+        fn()
+    torch.cuda.synchronize()
+    with profiling.trace() as prof:
+        for _ in range(calls):
+            if prepare:
+                prepare()
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time_total / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and key in e.name]
+    return float(np.median(times)) if times else float("nan")
+
+
 def check_k1(dev, card):
     from sparse_solvers_tpu_torch.ops.cuda import kernels as K1
     g = torch.Generator(device=dev).manual_seed(1)
@@ -163,56 +194,43 @@ def check_k1(dev, card):
     return result(err, ms, plain, library, b_ms, b_by)
 
 
-def check_k2(dev, card):
+def check_k2(dev, card, K):
+    """K2 at b=256, n=8192 with K active slots: bit-identical to its twin,
+    ties planted across every chunk boundary of its split plan and a lane
+    with no valid candidate."""
     from sparse_solvers_tpu_torch.ops.cuda import scan as K2
-    rng = np.random.RandomState(2)
-    b, n, K = BATCH, N, K_MAX
-    q = rng.uniform(-0.5, 0.5, (b, n)).astype(np.float32)
-    c = rng.uniform(-0.5, 0.5, (b, n)).astype(np.float32)
-    c_inf = np.ones(b, np.float32)
-    mask = np.zeros((b, n), np.int8)
-    ind = np.full((b, K), n, np.int32)
-    xa = np.zeros((b, K), np.float32)
-    da = np.zeros((b, K), np.float32)
-    for lane in range(b):
-        k = rng.randint(1, K + 1)
-        cols = rng.choice(n, k, replace=False)
-        mask[lane, cols] = 1
-        ind[lane, :k] = cols
-        xa[lane, :k] = rng.uniform(0.5, 1.0, k)
-        da[lane, :k] = rng.uniform(-1.0, 1.0, k)
-    # planted exact ties on cleared lanes, where every other candidate is
-    # >= 1/3: lane 0, two inactive positions; lanes 1 and 2, an active
-    # slot against an inactive position after / before it; lane 3 has no
-    # valid candidate at all
-    mask[:4], ind[:4], xa[:4], da[:4] = 0, n, 0.0, 0.0
-    for lane, pos in ((0, 700), (0, 5000), (1, 4000), (2, 300)):
-        c[lane, pos], q[lane, pos] = 0.5, -1.0   # (1-0.5)/(1+1) = 0.25
-    for lane, pos in ((1, 300), (2, 4000)):
-        mask[lane, pos], ind[lane, 0] = 1, pos
-        xa[lane, 0], da[lane, 0] = 0.25, -1.0    # -0.25/-1 = 0.25
-    q[3], c[3], c_inf[3] = 0.0, 0.0, 0.0
-    args = [torch.from_numpy(a).to(dev) for a in
-            (q, c, mask, c_inf, xa, da, ind)]
+    b, n = BATCH, N
+    plan = K2.scan_launch_plan(b, n)
+    bounds = [lo for lo, _ in plan.chunks(n)[1:]]
+    arrays, expected = scan_split_case(b, n, K, bounds)
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
     gam, idx = K2.find_max_gamma_fused(*args)
     gp, ip = K2.find_max_gamma_fused_plain(*args)
     torch.cuda.synchronize()
     check(torch.equal(idx, ip), "K2: idx differs from the twin")
     check(torch.equal(gam, gp), "K2: gamma not bit-identical to the twin")
-    got = idx[:4].tolist()
-    check(got == [700, 300, 300, 0], f"K2: planted lanes gave {got}")
-    check(float(gam[3]) == float(np.finfo(np.float32).max),
+    got = {lane: int(idx[lane]) for lane in expected}
+    check(got == expected, f"K2: planted lanes gave {got}, not {expected}")
+    check(float(gam[b - 1]) == float(np.finfo(np.float32).max),
           "K2: no-candidate lane must give FLT_MAX")
     err = float((gam - gp).abs().max())
     ms = time_ms(lambda: K2.find_max_gamma_fused(*args))
+    dms = device_ms(lambda: K2.find_max_gamma_fused(*args),
+                    DEVICE_KERNELS[K2.NAME][0])
     plain = time_ms(lambda: K2.find_max_gamma_fused_plain(*args))
     # every input read once (q, c f32; mask int8; c_inf; the slot vectors),
     # gamma and idx written; about 12 fp32 operations per position
     nbytes = sum(t.numel() * t.element_size() for t in args) + 8 * b
     b_ms, b_by = bound(12 * b * (n + K), nbytes, 67e12)
     phase(f"K2 find_max_gamma_fused b={b} n={n} K={K}: idx exact, gamma "
-          f"bit-exact, planted ties {got}; kernel {ms:.4f} ms, twin "
-          f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
+          f"bit-exact, ties planted across the chunk boundaries {bounds} "
+          f"resolved {sorted(got.items())}; kernel {ms:.4f} ms (its own "
+          f"device time {dms:.4f} ms), twin "
+          f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+          f"{nbytes / 1e6:.1f} MB), {100 * b_ms / ms:.1f}% of its bound; "
+          f"plan: S = {plan.splits} CTAs per lane in a cluster, grid "
+          f"{plan.grid}, {plan.threads} threads, chunk {plan.chunk}, "
+          f"{plan.vec} positions a load [{card}]")
     return result(err, ms, plain, None, b_ms, b_by)
 
 
@@ -294,6 +312,9 @@ def check_k4(dev, card, K):
         err = max(err, e)
     ms = time_ms(lambda: K4.omp_insert(inv, *base[1:]),
                  prepare=lambda: inv.copy_(base[0]))
+    dms = device_ms(lambda: K4.omp_insert(inv, *base[1:]),
+                    DEVICE_KERNELS[K4.NAME][0],
+                    prepare=lambda: inv.copy_(base[0]))
     plain = time_ms(lambda: K4.omp_insert_plain(*base))
     # what these lanes need: every lane reads its k×k inverse (u2 and its
     # coef come from it), a gated lane writes it at (k+1)×(k+1); u1, b_act
@@ -302,12 +323,19 @@ def check_k4(dev, card, K):
     kg = torch.where(gated.cpu(), kk + 1, torch.zeros_like(kk))
     nbytes = 4 * int((kk ** 2 + kg ** 2).sum() + 3 * b * K) + 12 * b
     b_ms, b_by = bound(6 * int((kk ** 2).sum()), nbytes, 67e12)
+    plan = K4.k4_launch_plan(b, K)
+    where = "shared memory" if plan.shared else "device memory"
     phase(f"K4 omp_insert b={b} K={K}: deg exact, lanes not gated "
           f"bit-identical, floats within 1e-5 relative (max|err| "
           f"{err:.3e}); lanes gated {int(gated.sum())}, frozen "
           f"{int((~base[5]).sum())}, degenerate {int(deg.sum())}; kernel "
-          f"{ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}) [{card}]")
+          f"{ms:.4f} ms (its own device time {dms:.4f} ms), twin "
+          f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+          f"{100 * b_ms / ms:.1f}% of its bound; plan: a block of "
+          f"{plan.threads} threads a lane (a warp per "
+          f"{K4.K4_ROWS_PER_WARP} rows), "
+          f"{plan.vec} columns a load, live block in {where}, "
+          f"{plan.smem_bytes} B shared [{card}]")
     return result(err, ms, plain, None, b_ms, b_by)
 
 
@@ -610,9 +638,9 @@ def true_supports():
 DEVICE_KERNELS = {
     "normal_matvec_fused_bf16": ("round_to_bf16_kernel",
                                  "gemm_bf16_async_kernel"),
-    "find_max_gamma_fused": ("find_max_gamma_kernel",),
+    "find_max_gamma_fused": ("gamma_scan_cluster_kernel",),
     "transition": ("transition_kernel",),
-    "omp_insert": ("omp_insert_kernel",),
+    "omp_insert": ("omp_insert_rows_kernel",),
 }
 
 
@@ -890,15 +918,20 @@ def main() -> int:
     phase(f"build: {time.perf_counter() - t0:.2f} s (nvcc and load, "
           f"{build.library_path().name})")
 
+    def tiered(check_k, tiers, top):
+        """K2 or K4 at each tier of its paths; the JSON line keeps the top
+        tier of Homotopy or of the certified OMP path, with the largest
+        error of the tiers."""
+        res = {K: check_k(dev, card, K) for K in tiers}
+        return dict(res[top], max_abs_err=max(r["max_abs_err"]
+                                              for r in res.values()))
+
     results = {"normal_matvec_fused_bf16": check_k1(dev, card),
-               "find_max_gamma_fused": check_k2(dev, card),
+               "find_max_gamma_fused": tiered(check_k2, SCAN_TIERS, K_MAX),
                "transition": check_k3(dev, card, K_MAX)}
     check_k3(dev, card, 200)
-    # K4 at the OMP and gOMP paths' capacities; the JSON line keeps the
-    # certified OMP path's numbers and the larger error of the two
-    k4 = [check_k4(dev, card, K) for K in (OMP_MAX_ITER, GOMP_MAX_ITER)]
-    results["omp_insert"] = dict(k4[0], max_abs_err=max(
-        k4[0]["max_abs_err"], k4[1]["max_abs_err"]))
+    results["omp_insert"] = tiered(check_k4, OMP_TIERS + GOMP_TIERS,
+                                   OMP_MAX_ITER)
     fused_errs = check_k5_k6(dev, card)
     torch.cuda.synchronize()
     # each main path counts its own launches from 0; the JSON line sums them

@@ -37,14 +37,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # D, A16, D16 and P scratches, Q, b, m, n, stream
     "ss_normal_matvec_bf16": (_P,) * 5 + (_I, _I, _I, _P),
-    # q, c, mask, c_inf, x_act, d_act, indices, gamma, idx, b, n, K, stream
-    "ss_find_max_gamma": (_P,) * 9 + (_I, _I, _I, _P),
+    # q, c, mask, c_inf, x_act, d_act, indices, gamma, idx, b, n, K,
+    # threads, splits, chunk, vec, stream
+    "ss_find_max_gamma": (_P,) * 9 + (_I,) * 7 + (_P,),
     # inv, gk, x, d, ca, ind, u1, idx, kk, gamma, vtv, cnew, live, doins,
     # dorm, deg, work, tol, sentinel, b, K, stream
     "ss_transition": (_P,) * 17 + (ctypes.c_float, _I, _I, _I, _P),
     "ss_transition_smem_bytes": (_I,),
-    # inv, u1, kk, vtv, b_act, doins, coef, deg, b, K, stream
-    "ss_omp_insert": (_P,) * 8 + (_I, _I, _P),
+    # inv, u1, kk, vtv, b_act, doins, coef, deg, b, K, threads, shared,
+    # vec, shared bytes, stream
+    "ss_omp_insert": (_P,) * 8 + (_I,) * 6 + (_P,),
     # D, A, the A16, D16, P1, T and P2 scratches, Q, b, m, n, bf16_mode,
     # batch tile, s1, c1, s2, c2, stream
     "ss_normal_matvec_f32": (_P,) * 8 + (_I,) * 9 + (_P,),

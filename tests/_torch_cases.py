@@ -58,6 +58,76 @@ def scan_case(n, K=9, b=6, seed=11):
     return (q, c, mask, c_inf, xa, da, ind), [20, 40, 40, 0]
 
 
+def scan_split_case(b, n, K, boundaries, seed=2):
+    """Inputs of the γ scan at (b, n, K) with exact ties planted across
+    the split scan's chunk boundaries (``boundaries``: the first position
+    of every chunk after the first). Lanes are random (active sets of 1 to
+    K columns) except the planted ones, which are cleared so that every
+    other candidate is >= 1/3 and then given candidates of value 0.25:
+      lane 0: inactive pairs (x−1, x) at every boundary x -> the first x−1
+              (at n // 2 when there is no boundary);
+      lanes 1, 2, ...: one boundary each, in turn, as an inactive pair, an
+              active slot at x against an inactive x−1, and an active slot
+              at x−1 against an inactive x -> x−1;
+      lane b−1 (b > 1): no valid candidate -> (FLT_MAX, 0).
+    Returns the seven arrays (q, c, mask, c_inf, x_act, d_act, indices) and
+    {lane: expected idx} for the planted lanes."""
+    rng = np.random.RandomState(seed)
+    q = rng.uniform(-0.5, 0.5, (b, n)).astype(np.float32)
+    c = rng.uniform(-0.5, 0.5, (b, n)).astype(np.float32)
+    c_inf = np.ones(b, np.float32)
+    mask = np.zeros((b, n), np.int8)
+    ind = np.full((b, K), n, np.int32)
+    xa = np.zeros((b, K), np.float32)
+    da = np.zeros((b, K), np.float32)
+    for lane in range(b):
+        k = rng.randint(1, min(K, n) + 1)
+        cols = rng.choice(n, k, replace=False)
+        mask[lane, cols] = 1
+        ind[lane, :k] = cols
+        xa[lane, :k] = rng.uniform(0.5, 1.0, k)
+        da[lane, :k] = rng.uniform(-1.0, 1.0, k)
+    bounds = list(boundaries) or [max(1, n // 2)]
+    kinds = [(x, kind) for x in bounds for kind in range(3)]
+    planted = [(0, None)] + [(1 + j, xk) for j, xk in
+                             enumerate(kinds[:max(0, b - 2)])]
+    expected = {}
+
+    def inactive(lane, pos):
+        c[lane, pos], q[lane, pos] = 0.5, -1.0   # (1-0.5)/(1+1) = 0.25
+
+    def active(lane, pos):
+        mask[lane, pos], ind[lane, 0] = 1, pos
+        xa[lane, 0], da[lane, 0] = 0.25, -1.0    # -0.25/-1 = 0.25
+
+    for lane, xk in planted:
+        mask[lane], ind[lane], xa[lane], da[lane] = 0, n, 0.0, 0.0
+        if xk is None:
+            for x in bounds:
+                inactive(lane, x - 1)
+                if x < n:
+                    inactive(lane, x)
+            expected[lane] = bounds[0] - 1
+            continue
+        x, kind = xk
+        if kind == 0:
+            inactive(lane, x - 1)
+            inactive(lane, x)
+        elif kind == 1:
+            active(lane, x)
+            inactive(lane, x - 1)
+        else:
+            active(lane, x - 1)
+            inactive(lane, x)
+        expected[lane] = x - 1
+    if b > 1:
+        last = b - 1
+        mask[last], ind[last], xa[last], da[last] = 0, n, 0.0, 0.0
+        q[last], c[last], c_inf[last] = 0.0, 0.0, 0.0
+        expected[last] = 0
+    return (q, c, mask, c_inf, xa, da, ind), expected
+
+
 def random_states(seed, b, K, n, m=30):
     """Valid per-lane active-set states from random SPD Grams (the recipe
     of tests/test_transition_kernel.py::_random_states)."""
@@ -178,7 +248,9 @@ def omp_insert_case(b, K, seed=0):
     column's Gram row as u1, b_act filled through slot kk), every fourth
     lane frozen (doins false), and lane 1 a degenerate insert: orthonormal
     active columns with a copy of active column 0 inserted, so den = 1 − 1
-    = 0 exactly."""
+    = 0 exactly. The edge slots are planted: lane 0 inserts at kk = 0, and
+    lanes 2 and 3 (frozen) sit at kk = K−1. Vacant rows and columns (slots
+    ≥ kk) are zero, as the drivers keep them."""
     rng = np.random.RandomState(seed)
     inv = np.zeros((b, K, K), np.float32)
     u1 = np.zeros((b, K), np.float32)
@@ -186,15 +258,25 @@ def omp_insert_case(b, K, seed=0):
     kk = np.zeros(b, np.int32)
     vtv = np.zeros(b, np.float32)
     rows = K + 32
-    for lane in range(b):
-        k = rng.randint(0, K)
+    edge = np.random.RandomState(seed + 1)
+
+    def state(lane, k, rng):
         Ag = rng.randn(rows, k + 1) / np.sqrt(rows)
         g = Ag.T @ Ag
+        inv[lane] = 0
         inv[lane, :k, :k] = np.linalg.inv(g[:k, :k])
+        u1[lane] = 0
         u1[lane, :k] = g[k, :k]
         vtv[lane] = g[k, k]
+        b_act[lane] = 0
         b_act[lane, :k + 1] = rng.randn(k + 1)
         kk[lane] = k
+
+    for lane in range(b):
+        state(lane, rng.randint(0, K), rng)
+    for lane, k in ((0, 0), (2, K - 1), (3, K - 1)):
+        if lane < b:
+            state(lane, k, edge)
     doins = np.arange(b) % 4 != 3
     if b > 1:
         inv[1], u1[1], b_act[1] = 0, 0, 0

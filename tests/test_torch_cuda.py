@@ -11,7 +11,8 @@ not; K1 also runs a ragged second batch tile (b=130), bases off 16 bytes,
 an aligned 256x512x1024 and a bit-identical repeat run. Tolerances: K1
 1e-3·max|Q| (a P element may land on the neighbouring bf16 value when
 the fp32 sums run in another order), K2 idx and gamma
-exact, K3 indices and deg exact, floats 1e-5 of the tensor's scale, frozen
+exact (also split across a cluster, with ties planted across its chunk
+boundaries and bases off 16 bytes), K3 indices and deg exact, floats 1e-5 of the tensor's scale, frozen
 lanes bit-identical; K4 deg exact, floats 1e-5 of the tensor's scale,
 lanes that are not gated bit-identical; K5 and K6 1e-5·max|ref| at
 "highest" and 1e-3·max|ref| at "default" (bf16 flips of the
@@ -27,8 +28,8 @@ import pytest
 import torch
 
 from _torch_cases import (compressive_problem, degenerate_case,
-                          omp_insert_case, scan_case, transition_case,
-                          transition_mix)
+                          omp_insert_case, scan_case, scan_split_case,
+                          transition_case, transition_mix)
 
 pytestmark = pytest.mark.cuda
 
@@ -110,6 +111,34 @@ def test_k2_kernel_matches_twin(dev, n):
     assert i[:4].tolist() == planted
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("b", [1, 3, 256])
+@pytest.mark.parametrize("n", [17, 4099, 8192])
+def test_k2_split_scan_matches_twin(dev, n, b, offset):
+    """The split scan at its plan's chunks, with exact ties planted across
+    every chunk boundary and a lane with no valid candidate; with `offset`
+    1 every (b, n) operand starts one element into its storage, so no base
+    is aligned for float4 loads."""
+    from sparse_solvers_tpu_torch.ops.cuda import scan as K2
+    plan = K2.scan_launch_plan(b, n)
+    bounds = [lo for lo, _ in plan.chunks(n)[1:]]
+    arrays, expected = scan_split_case(b, n, 24, bounds)
+    args = []
+    for a in arrays:
+        t = torch.from_numpy(a).to(dev)
+        if a.ndim == 2 and a.shape[1] == n:
+            store = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+            t = store[offset:].view(b, n).copy_(t)
+        args.append(t)
+    assert (args[0].data_ptr() % 16 == 0) == (offset == 0)
+    g, i = _counted(K2.NAME, lambda: K2.find_max_gamma_fused(*args))
+    gp, ip = K2.find_max_gamma_fused_plain(*args)
+    assert torch.equal(i, ip) and torch.equal(g, gp)
+    assert {lane: int(i[lane]) for lane in expected} == expected
+    if b > 1:
+        assert float(g[b - 1]) == float(np.finfo(np.float32).max)
+
+
 @pytest.mark.parametrize("case", ["remove_p", "remove_last", "degenerate"])
 def test_k3_kernel_matches_twin(dev, case):
     from sparse_solvers_tpu_torch.ops.cuda import transition as K3
@@ -179,10 +208,13 @@ def test_homotopy_beyond_shared_memory_matches_cpu_twins(dev):
     assert dispatch.launches["transition"] > 0
 
 
-@pytest.mark.parametrize("K", [13, 72, 128, 300])
+@pytest.mark.parametrize("K", [13, 24, 40, 64, 72, 128, 300])
 @pytest.mark.parametrize("b", [5, 70, 256])
 def test_k4_kernel_matches_twin(dev, b, K):
+    """The drivers' tiers and ragged capacities, lanes at kk = 0 and K−1;
+    K=300 runs the device-memory instantiation."""
     from sparse_solvers_tpu_torch.ops.cuda import omp_insert as K4
+    assert K4.k4_launch_plan(b, K).shared == (K < 300)
     base = [torch.from_numpy(a).to(dev) for a in omp_insert_case(b, K)]
     inv = base[0].clone()
     coef, deg = _counted(K4.NAME, lambda: K4.omp_insert(inv, *base[1:]))

@@ -165,6 +165,51 @@ def test_empty_batch():
     assert v.shape == i.shape == (0, 16) and i.dtype == torch.int32
 
 
+def _vacant_nonzero(inv, kk):
+    """Lanes whose inverse has a nonzero entry in a row or column at a
+    slot ≥ kk (kk clamped to the capacity)."""
+    K = inv.shape[1]
+    vacant = torch.arange(K)[None, :] >= kk.clamp(0, K)[:, None]   # (b, K)
+    outside = vacant[:, :, None] | vacant[:, None, :]
+    return torch.nonzero((inv != 0) & outside)[:, 0].unique().tolist()
+
+
+@pytest.mark.parametrize("picks", [1, 4])
+def test_driver_keeps_vacant_slots_of_the_inverse_zero(monkeypatch, picks):
+    """The CUDA K4 reads only a lane's live block: it relies on every row
+    and column of the inverse at slots ≥ kk being exactly zero. The driver
+    writes the inverse only through K4 inside a round and zero-pads it at
+    a tier boundary, so holding each K4 call's input (at its kk) and
+    output (at kk + 1 where the insert was gated) holds the state after
+    every round, across the embed from tier 16 into tier 24 (the 20-sparse
+    lanes stop there).
+
+    Broken lanes are outside that contract: a lane that blew (non-finite
+    coef or rss, omp_batch.py:219-221) had its inverse grown in place by
+    K4 before the driver knew, keeps its old kk and stops, so its row kk
+    may be stale; its coef is never committed again. No lane blows on this
+    problem (asserted), and degenerate inserts are never written, so here
+    the contract covers every lane."""
+    seen = []
+    real = PO.omp_insert
+
+    def spy(inv, u1, kk, vtv, b_act, doins):
+        assert _vacant_nonzero(inv, kk) == []
+        coef, deg = real(inv, u1, kk, vtv, b_act, doins)
+        assert bool(torch.isfinite(coef).all())
+        grown = kk + (doins & ~deg).to(kk.dtype)
+        assert _vacant_nonzero(inv, grown) == []
+        seen.append((inv.shape[1], int(grown.max())))
+        return coef, deg
+
+    monkeypatch.setattr(POB._oins, "omp_insert", spy)
+    A, G, Y = LADDER_A, _ladder_gram(), LADDER_Y
+    X, rep = _port_omp(A, G, Y, "high", picks, True)
+    assert (rep.solution_error.numpy() <= TOL).all()
+    assert sorted({K for K, _ in seen}) == [16, 24]
+    assert max(k for _, k in seen) >= 20
+
+
 @pytest.mark.parametrize("picks", [1, 4])
 def test_lane_at_capacity_writes_no_slot(monkeypatch, picks):
     """Lane 0 needs 24 picks against k_max 10; the others need 3 to 6. At

@@ -1,16 +1,19 @@
-"""Time K1, K5 and K6 of the port found under a root directory, on the
-card, as ``chip_smoke.py``'s phases time them: for A/B runs of two trees.
+"""Time K1, K2, K4, K5 and K6 of the port found under a root directory, on
+the card, as ``chip_smoke.py``'s phases time them: for A/B runs of two
+trees.
 
-    python3 tools/time_fused.py [--root DIR] [--kernels k1,k5,k6]
+    python3 tools/time_fused.py [--root DIR] [--kernels k1,k2,k4,k5,k6]
 
 Loads ``sparse_solvers_tpu_torch`` from DIR (default: this checkout),
 builds its kernels and prints one line per case: K1 at b=256, m=4096,
-n=8192 (``chip_smoke.time_ms``, the median of 20 calls), K5 and K6 at
-m=4096, n=8192, b = 8, 64, 256, at "highest" and "default"
-(``utils/profiling.measure``, 10 back-to-back launches) on
-``chip_smoke.fused_case``'s inputs. Run each tree in a process of its own,
-in turns (parent, change, change, parent), so that each loads only its
-own library. Needs one CUDA card; imports nothing of JAX.
+n=8192, K2 at b=256, n=8192 at each Homotopy tier and K4 at b=256 at each
+OMP and gOMP tier (``chip_smoke.time_ms``, the median of 20 calls, on the
+inputs of ``chip_smoke.py``'s checks), K5 and K6 at m=4096, n=8192, b = 8,
+64, 256, at "highest" and "default" (``utils/profiling.measure``, 10
+back-to-back launches) on ``chip_smoke.fused_case``'s inputs. Run each
+tree in a process of its own, in turns (parent, change, change, parent),
+so that each loads only its own library. Needs one CUDA card; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ HERE = Path(__file__).resolve().parents[1]
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
-    ap.add_argument("--kernels", default="k1,k5,k6")
+    ap.add_argument("--kernels", default="k1,k2,k4,k5,k6")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_fused: torch sees no CUDA device", file=sys.stderr)
@@ -59,6 +62,25 @@ def main() -> int:
         D = torch.randn(smoke.BATCH, smoke.N, generator=g, device=dev)
         ms = smoke.time_ms(lambda: K.normal_matvec_fused_bf16(A16, D))
         print(f"K1 b={smoke.BATCH}: {ms:.4f} ms {tag}", flush=True)
+    if "k2" in wanted:
+        from sparse_solvers_tpu_torch.ops.cuda import scan as K2
+        for k in smoke.SCAN_TIERS:
+            # ties planted at n/2, the same inputs for any tree
+            arrays, _ = smoke.scan_split_case(smoke.BATCH, smoke.N, k,
+                                              [smoke.N // 2])
+            args = [torch.from_numpy(a).to(dev) for a in arrays]
+            ms = smoke.time_ms(lambda: K2.find_max_gamma_fused(*args))
+            print(f"K2 b={smoke.BATCH} n={smoke.N} K={k}: {ms:.4f} ms {tag}",
+                  flush=True)
+    if "k4" in wanted:
+        from sparse_solvers_tpu_torch.ops.cuda import omp_insert as K4
+        for k in smoke.OMP_TIERS + smoke.GOMP_TIERS:
+            base = [torch.from_numpy(a).to(dev)
+                    for a in smoke.omp_insert_case(smoke.BATCH, k)]
+            inv = base[0].clone()
+            ms = smoke.time_ms(lambda: K4.omp_insert(inv, *base[1:]),
+                               prepare=lambda: inv.copy_(base[0]))
+            print(f"K4 b={smoke.BATCH} K={k}: {ms:.4f} ms {tag}", flush=True)
     names = {"k5": "normal_matvec_fused", "k6": "residual_correlation_fused"}
     for b in smoke.FUSED_BATCHES:
         A, D, Y = smoke.fused_case(dev, b)
