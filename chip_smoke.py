@@ -7,12 +7,13 @@ csrc`` with nvcc and holds each against its plain PyTorch twin on the card
 at the shapes of the main paths (K2 at each Homotopy tier, with ties
 planted across its split chunks; K3 also at K=200, past a block's shared
 memory; K4 at each OMP and gOMP tier; K5 and K6 at b = 8, 64 and 256, at
-"highest" and "default"), each timed beside its bound, with its launch
-plan; K1's line adds its TFLOP/s, its share of its bound, its factor
-against two bf16 matmuls and its ring tile. Then it drives the main paths
-on a 4096x8192 f32 sensing matrix with k=64-sparse signals, tol 1e-2,
-each timed and then profiled once (``utils/profiling.trace``: device ms
-per hand kernel, K1's share, total device ms and wall ms):
+"highest" and "default"; K1 and K2 also at the gram-free paths' shape,
+m=2048, n=65536), each timed beside its bound, with its launch plan; K1's
+line adds its TFLOP/s, its share of its bound, its factor against two
+bf16 matmuls and its ring tile. Then it drives the main paths on a
+4096x8192 f32 sensing matrix with k=64-sparse signals, tol 1e-2, each
+timed and then profiled once (``utils/profiling.trace``: device ms per
+hand kernel, K1's share, total device ms and wall ms):
 
   * ``Homotopy`` batch 256, k_max 96, 128 iterations, "certified" (the
     workload of ``bench.py``);
@@ -26,25 +27,35 @@ per hand kernel, K1's share, total device ms and wall ms):
     library calls, with the roofline share, and each case's launch plan
     (tiles, splits) and the device time of each of its launches in one
     ``torch.profiler`` call;
+  * the gram-free paths at 2048x65536 (k=16, batch 256, where AᵀA would
+    take 16 GiB; ``benchmarks/bench_gram_free.py``): ``Homotopy(A,
+    gram=False)``, 40 iterations, and ``Omp(A, gram=False)``, 24, both
+    "certified", each timed and profiled as above, then its re-solve at
+    "high" forced for every lane, with the peak of allocated device memory
+    held below one n×n tensor;
   * the per-lane Homotopy core: certified single ``solve``s, an 8-lane
     sparse-regime ``solve_batch``, exact against fast mode, float64, and
     ``solve_path``;
+  * the per-lane OMP core: certified single ``solve``s (timed), an 8-lane
+    small-batch ``solve_batch``, ``gram=True``, exact against fast mode,
+    float64 and a gOMP picks=4 ``solve``;
 
 and checks that every lane is certified, recovers its true support, and
 went through the kernels of its path (Homotopy K1, K2, K3; OMP K1, K4;
-the roofline path K5, K6; the core none). Ends with small cross-device
+the roofline path K5, K6; the cores none). Ends with small cross-device
 checks of the port on the card against the port on the CPU. Any failed
 check raises, so the script exits non-zero and never prints its last
 line. Needs one CUDA card; imports nothing of JAX.
 
 Output: phases on earlier lines, then one JSON line of per-kernel results
 (each with its bound: the larger of its bytes over 3.35 TB/s and its
-operations over the H100's peak for their type), then ``{"ok": true,
-"device": {...}}`` as the last line.
+operations over the H100's peak for their type; launches summed over
+every path), then ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -64,6 +75,10 @@ from _torch_cases import (omp_insert_case, scan_split_case,  # noqa: E402
 M, N, K_SPARSE, BATCH = 4096, 8192, 64, 256
 TOL, K_MAX, MAX_ITER = 1e-2, 96, 128
 OMP_MAX_ITER, GOMP_MAX_ITER, GOMP_PICKS = 72, 128, 4
+# the gram-free paths: (m, n, k) and iteration budgets of benchmarks/
+# bench_gram_free.py:81-86 (Homotopy) and bench_omp.py:60-64 (OMP, --large)
+GF_SHAPE = (2048, 65536, 16)
+GF_MAX_ITER, GF_OMP_MAX_ITER = 40, 24
 FUSED_BATCHES, FUSED_PRECISIONS = (8, 64, 256), ("highest", "default")
 # the capacity tiers of the main paths (solvers/homotopy_batch.py::
 # _plan_tiers): K2 on Homotopy's, K4 on OMP's and gOMP's
@@ -152,12 +167,13 @@ def device_ms(fn, key: str, prepare=None, calls: int = 10) -> float:
     return float(np.median(times)) if times else float("nan")
 
 
-def check_k1(dev, card):
+def check_k1(dev, card, m=M, n=N):
     from sparse_solvers_tpu_torch.ops.cuda import kernels as K1
     g = torch.Generator(device=dev).manual_seed(1)
-    A = torch.randn(M, N, generator=g, device=dev)
+    A = torch.randn(m, n, generator=g, device=dev)
     A16 = (A / A.norm(dim=0)).to(torch.bfloat16)
-    D = torch.randn(BATCH, N, generator=g, device=dev)
+    del A
+    D = torch.randn(BATCH, n, generator=g, device=dev)
     Q = K1.normal_matvec_fused_bf16(A16, D)
     Qp = K1.normal_matvec_fused_bf16_plain(A16, D)
     torch.cuda.synchronize()
@@ -179,10 +195,10 @@ def check_k1(dev, card):
     D16 = D.to(torch.bfloat16)
     library = time_ms(lambda: torch.matmul(torch.matmul(D16, A16.T), A16))
     # A16 read once, D read, Q written; 4·b·m·n bf16 tensor-core operations
-    flops = 4 * BATCH * M * N
-    b_ms, b_by = bound(flops, M * N * 2 + 2 * BATCH * N * 4, 989e12)
-    plan = K1.k1_launch_plan(BATCH, M, N)
-    phase(f"K1 normal_matvec_fused_bf16 b={BATCH} m={M} n={N}: max|err| "
+    flops = 4 * BATCH * m * n
+    b_ms, b_by = bound(flops, m * n * 2 + 2 * BATCH * n * 4, 989e12)
+    plan = K1.k1_launch_plan(BATCH, m, n)
+    phase(f"K1 normal_matvec_fused_bf16 b={BATCH} m={m} n={n}: max|err| "
           f"{err:.3e} <= {limit:.3e} (1e-3*max|Q|), repeat run "
           f"bit-identical; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
           f"TFLOP/s, {100 * b_ms / ms:.1f}% of its bound, "
@@ -194,12 +210,12 @@ def check_k1(dev, card):
     return result(err, ms, plain, library, b_ms, b_by)
 
 
-def check_k2(dev, card, K):
-    """K2 at b=256, n=8192 with K active slots: bit-identical to its twin,
-    ties planted across every chunk boundary of its split plan and a lane
-    with no valid candidate."""
+def check_k2(dev, card, K, n=N):
+    """K2 at b=256 and n positions with K active slots: bit-identical to
+    its twin, ties planted across every chunk boundary of its split plan
+    and a lane with no valid candidate."""
     from sparse_solvers_tpu_torch.ops.cuda import scan as K2
-    b, n = BATCH, N
+    b = BATCH
     plan = K2.scan_launch_plan(b, n)
     bounds = [lo for lo, _ in plan.chunks(n)[1:]]
     arrays, expected = scan_split_case(b, n, K, bounds)
@@ -711,10 +727,12 @@ def time_path(name, solver, Y, dev, card, max_iter, runs: int = 10):
     profile_path(name, solver, Yd, card, max_iter)
 
 
-def run_path(name, solver, Y, dev, card, max_iter, kernels):
+def run_path(name, solver, Y, dev, card, max_iter, kernels,
+             shape=(M, N, K_SPARSE)):
     """One ``solve_batch`` with the launch counts set to 0 just before and
     read just after; fails unless each of ``kernels`` launched and no
-    other kernel did. Then the timed runs."""
+    other kernel did. Then the timed runs. ``shape``: (m, n, k) of the
+    problem, for the phase line."""
     from sparse_solvers_tpu_torch.ops import dispatch
     dispatch.reset_launches()
     t0 = time.perf_counter()
@@ -722,9 +740,11 @@ def run_path(name, solver, Y, dev, card, max_iter, kernels):
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     launches = dict(dispatch.launches)
-    phase(f"{name}: solve_batch {M}x{N} k={K_SPARSE} batch={BATCH} "
+    m, n, k = shape
+    phase(f"{name}: solve_batch {m}x{n} k={k} batch={BATCH} "
           f"tol={TOL} max_iter={max_iter} certified: first call "
-          f"{first:.3f} s (Gram included); launches {launches}")
+          f"{first:.3f} s (Gram or transposed copy included); launches "
+          f"{launches}")
     for kname, count in launches.items():
         if kname in kernels:
             check(count > 0, f"{name} never launched kernel {kname}")
@@ -742,10 +762,38 @@ def run_path(name, solver, Y, dev, card, max_iter, kernels):
     return Xh, errs, iters, launches
 
 
-def check_supports(name, Xh, sups):
-    top = np.argsort(-np.abs(Xh), axis=1)[:, :K_SPARSE]
+def check_supports(name, Xh, sups, k=K_SPARSE):
+    top = np.argsort(-np.abs(Xh), axis=1)[:, :k]
     wrong = [i for i in range(BATCH) if set(top[i].tolist()) != sups[i]]
     check(not wrong, f"{name}: support wrong on lanes {wrong[:8]}")
+
+
+def check_linf_certificate(name, A64, Y, Xh, errs, lanes):
+    """Homotopy's certificate ‖Aᵀ(y − Ax)‖∞ against a float64 host
+    recompute on ``lanes``, to rtol 1e-4."""
+    c = (Y[lanes].astype(np.float64) - Xh[lanes].astype(np.float64)
+         @ A64.T) @ A64
+    cert = np.abs(c).max(axis=1)
+    check(np.allclose(errs[lanes], cert, rtol=1e-4, atol=0),
+          f"{name}: certificate vs float64 host recompute "
+          f"{errs[lanes]} vs {cert}")
+
+
+def check_l2_certificate(name, A64, Y, Xh, errs, lanes, k):
+    """OMP's certificate ‖y − Ax‖₂ against a float64 host recompute on
+    ``lanes``. Once the support is complete the residual sits at the f32
+    rounding floor, so beside rtol 1e-4 each lane is allowed the f32
+    evaluation bound of r = y − Ax: (k + 2)·2⁻²⁴·‖|y| + |x|·|A|ᵀ‖₂.
+    Returns (the largest gap, the largest allowance)."""
+    Yl, Xl = Y[lanes].astype(np.float64), Xh[lanes].astype(np.float64)
+    ref = np.linalg.norm(Yl - Xl @ A64.T, axis=1)
+    slack = (k + 2) * 2.0 ** -24 * np.linalg.norm(
+        np.abs(Yl) + np.abs(Xl) @ np.abs(A64).T, axis=1)
+    gap = np.abs(errs[lanes] - ref)
+    check(bool((gap <= 1e-4 * ref + slack).all()),
+          f"{name}: certificate vs float64 host recompute "
+          f"{errs[lanes]} vs {ref} (slack {slack})")
+    return gap.max(), (1e-4 * ref + slack).max()
 
 
 def main_path(dev, card):
@@ -759,12 +807,8 @@ def main_path(dev, card):
                                          HOMOTOPY_KERNELS)
     check_supports("homotopy main path", Xh, true_supports())
     lanes = np.arange(0, BATCH, BATCH // 16)
-    A64 = A.astype(np.float64)
-    c = (Y[lanes].astype(np.float64) - Xh[lanes].astype(np.float64) @ A64.T) @ A64
-    cert = np.abs(c).max(axis=1)
-    check(np.allclose(errs[lanes], cert, rtol=1e-4, atol=0),
-          f"homotopy main path: certificate vs float64 host recompute "
-          f"{errs[lanes]} vs {cert}")
+    check_linf_certificate("homotopy main path", A.astype(np.float64), Y,
+                           Xh, errs, lanes)
     phase(f"homotopy main path: {BATCH}/{BATCH} lanes certified <= {TOL} "
           f"(max {errs.max():.4e}), top-{K_SPARSE} support exact on every "
           f"lane, certificate = float64 host recompute to rtol 1e-4 on "
@@ -773,25 +817,13 @@ def main_path(dev, card):
     return launches
 
 
-def omp_problem():
-    """benchmarks/bench_omp.py's problem, drawn in the order of
-    benchmarks/_common.py::make_sparse_problem (seed 0, unsigned
-    amplitudes 0.5 to 1.0): A (f32, unit columns), X, Y = X·Aᵀ."""
-    rng = np.random.RandomState(0)
-    A = rng.randn(M, N).astype(np.float32)
-    A /= np.linalg.norm(A, axis=0)
-    X = np.zeros((BATCH, N), np.float32)
-    for b in range(BATCH):
-        sup = rng.choice(N, K_SPARSE, replace=False)
-        X[b, sup] = rng.uniform(0.5, 1.0, K_SPARSE)
-    return A, X, (X @ A.T).astype(np.float32)
-
-
 def omp_paths(dev, card):
-    """The certified OMP and gOMP main paths on one problem."""
+    """The certified OMP and gOMP main paths on benchmarks/bench_omp.py's
+    problem (seed 0)."""
+    from benchmarks._common import make_sparse_problem
     from sparse_solvers_tpu_torch import Omp
 
-    A, X0, Y = omp_problem()
+    A, X0, Y = make_sparse_problem(M, N, K_SPARSE, BATCH, seed=0)
     sups = [set(np.flatnonzero(x).tolist()) for x in X0]
     lanes = np.arange(0, BATCH, BATCH // 16)
     A64 = A.astype(np.float64)
@@ -808,30 +840,259 @@ def omp_paths(dev, card):
         check(k4 >= picks * k1,
               f"{name}: {k4} K4 launches for {k1} q passes at picks={picks}")
         check_supports(name, Xh, sups)
-        # ‖y − Ax‖₂ in float64 on the host, against the certificate. Once
-        # the support is complete the residual sits at the f32 rounding
-        # floor, so beside rtol 1e-4 each lane is allowed the f32
-        # evaluation bound of r = y − Ax: (k + 2)·2⁻²⁴·‖|y| + |x|·|A|ᵀ‖₂
-        Yl, Xl = Y[lanes].astype(np.float64), Xh[lanes].astype(np.float64)
-        ref = np.linalg.norm(Yl - Xl @ A64.T, axis=1)
-        slack = (K_SPARSE + 2) * 2.0 ** -24 * np.linalg.norm(
-            np.abs(Yl) + np.abs(Xl) @ np.abs(A64).T, axis=1)
-        gap = np.abs(errs[lanes] - ref)
-        check(bool((gap <= 1e-4 * ref + slack).all()),
-              f"{name}: certificate vs float64 host recompute "
-              f"{errs[lanes]} vs {ref} (slack {slack})")
+        gap, allowed = check_l2_certificate(name, A64, Y, Xh, errs, lanes,
+                                            K_SPARSE)
         phase(f"{name}: plan tiers {plan['capacity_tiers']}, k_max "
               f"{plan['k_max']}, picks {picks}; {BATCH}/{BATCH} lanes "
               f"certified <= {TOL} (max {errs.max():.4e}), top-{K_SPARSE} "
               f"support exact on every lane, certificate = float64 host "
               f"recompute within rtol 1e-4 + f32 evaluation bound on "
-              f"{len(lanes)} lanes (max gap {gap.max():.3e}, max bound "
-              f"{(1e-4 * ref + slack).max():.3e}); iterations max "
+              f"{len(lanes)} lanes (max gap {gap:.3e}, max bound "
+              f"{allowed:.3e}); iterations max "
               f"{iters.max()} mean {iters.mean():.1f}; q passes {k1}, K4 "
               f"calls {k4}")
         for kname, count in launches.items():
             counts[kname] = counts.get(kname, 0) + count
     return counts
+
+
+@contextlib.contextmanager
+def failing_certificate(module, name: str):
+    """Replace ``module.name`` (a certificate seam) so that its first call
+    reports every lane as failing, by adding 1 to the real certificate;
+    yields the list of its calls."""
+    real = getattr(module, name)
+    calls = []
+
+    def first_fails(*args):
+        err = real(*args)
+        calls.append(1)
+        return err + 1.0 if len(calls) == 1 else err
+
+    setattr(module, name, first_fails)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def forced_resolve(name, solver, seam, Y, dev, card, max_iter, first,
+                   iters):
+    """The certified re-solve at "high" on the gram-free route, forced:
+    every lane's first certificate fails, so every lane that did not
+    exhaust its budget in the certified pass (``iters``, that pass's
+    iterations) re-solves on the gram-free driver without K1 (two fp32
+    products, TF32 off). Its K1 launches equal the certified pass's
+    (``first``, the launch counts of ``run_path``'s call), the peak of
+    allocated device memory stays below one n×n f32 tensor, and every
+    re-solved lane ends certified (the others keep the failed
+    certificate). Returns the launch counts and X."""
+    from sparse_solvers_tpu_torch.ops import dispatch
+    n = solver.shape[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dispatch.reset_launches()
+    with failing_certificate(*seam) as calls:
+        t0 = time.perf_counter()
+        X, rep = solver.solve_batch(Y, TOL, max_iter)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(dispatch.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    errs = rep.solution_error.cpu().numpy()
+    k1 = "normal_matvec_fused_bf16"
+    check(bool(calls), f"{name}: the certificate seam was never called")
+    check(launches[k1] == first[k1], f"{name}: the forced re-solve launched "
+          f"K1 {launches[k1]} times against the certified pass's "
+          f"{first[k1]}")
+    check(peak < n * n * 4, f"{name}: {peak} B of device memory allocated "
+          f"at the peak, past one n×n f32 tensor ({n * n * 4} B)")
+    check(solver._G_cache is None, f"{name}: a Gram was built")
+    redone = iters < max_iter
+    check(bool(redone.any()), f"{name}: every lane exhausted its budget")
+    check(bool((errs[redone] <= TOL).all()),
+          f"{name}: forced re-solve left "
+          f"{int((~(errs[redone] <= TOL)).sum())} lanes above tol")
+    phase(f"{name} forced re-solve at high (every certificate failed "
+          f"once): {wall:.3f} s, launches {launches} (K1 as the certified "
+          f"pass alone: the re-solve ran none), peak device memory "
+          f"{peak / 2**30:.3f} GiB against {n * n * 4 / 2**30:.0f} GiB for "
+          f"an n×n f32 tensor, no Gram, {int(redone.sum())}/{BATCH} lanes "
+          f"re-solved, all certified (max {errs[redone].max():.4e}) "
+          f"[{card}]")
+    return launches, X.cpu().numpy()
+
+
+def gram_free_paths(dev, card):
+    """The gram-free Homotopy and OMP paths at 2048x65536 (k=16, batch
+    256, tol 1e-2; benchmarks/bench_gram_free.py:81-86 and
+    benchmarks/bench_omp.py:60-64), where AᵀA would take 16 GiB: explain
+    says gram-free, the certified solve_batch is timed and profiled as the
+    main paths are, then its re-solve at "high" is forced. Returns the
+    summed launch counts."""
+    from benchmarks._common import make_sparse_problem
+    from sparse_solvers_tpu_torch import Homotopy, Omp, api
+    from sparse_solvers_tpu_torch.solvers import omp_batch
+
+    m, n, k = GF_SHAPE
+    A, X0, Y = make_sparse_problem(m, n, k, BATCH, seed=0)
+    sups = [set(np.flatnonzero(x).tolist()) for x in X0]
+    lanes = np.arange(0, BATCH, BATCH // 16)
+    A64 = A.astype(np.float64)
+    counts = {}
+    for name, make, max_iter, kernels, seam in (
+            ("gram-free homotopy path", Homotopy, GF_MAX_ITER,
+             HOMOTOPY_KERNELS, (api, "_certified_error")),
+            ("gram-free omp path", Omp, GF_OMP_MAX_ITER, OMP_KERNELS,
+             (omp_batch, "l2_certificate"))):
+        solver = make(A, gram=False, device=dev)
+        plan = solver.explain(batch=BATCH, max_iterations=max_iter)
+        check(plan.get("gram_free") is True
+              and plan["precision"] == "certified"
+              and plan.get("corr", "driver") == "driver",
+              f"{name}: plan {plan}")
+        Xh, errs, iters, launches = run_path(name, solver, Y, dev, card,
+                                             max_iter, kernels, GF_SHAPE)
+        check_supports(name, Xh, sups, k)
+        if make is Homotopy:
+            check_linf_certificate(name, A64, Y, Xh, errs, lanes)
+            how = "to rtol 1e-4"
+        else:
+            gap, allowed = check_l2_certificate(name, A64, Y, Xh, errs,
+                                                lanes, k)
+            how = (f"within rtol 1e-4 + f32 evaluation bound (max gap "
+                   f"{gap:.3e}, max bound {allowed:.3e})")
+        phase(f"{name}: plan '{plan['formulation']}', gram_free "
+              f"{plan['gram_free']}, k_max {plan['k_max']}; {BATCH}/{BATCH} "
+              f"lanes certified <= {TOL} (max {errs.max():.4e}), top-{k} "
+              f"support exact on every lane, certificate = float64 host "
+              f"recompute {how} on {len(lanes)} lanes; iterations max "
+              f"{iters.max()} mean {iters.mean():.1f}")
+        forced, Xf = forced_resolve(name, solver, seam, Y, dev, card,
+                                    max_iter, launches, iters)
+        check_supports(f"{name} forced re-solve", Xf, sups, k)
+        for kname in launches:
+            counts[kname] = counts.get(kname, 0) + launches[kname] \
+                + forced[kname]
+        del solver
+        torch.cuda.empty_cache()
+    return counts
+
+
+def omp_core_paths(dev, card):
+    """The per-lane OMP core at full width on bench.make_problem
+    (4096x8192, k=64), each phase with the launch counts read from 0: the
+    core runs no kernel of K1 to K6, as the JAX core reaches no
+    pallas_call. Certified single solves (each certificate against a
+    float64 recompute, as on the driver paths), timed; an 8-lane batch in
+    the small-batch regime; exact against fast at "highest"; float64;
+    gram=True; a gOMP picks=4 single solve."""
+    import bench
+    from sparse_solvers_tpu_torch import Omp
+    from sparse_solvers_tpu_torch.ops import dispatch
+    A, Y = bench.make_problem(M, N, K_SPARSE, 8)
+    A64 = A.astype(np.float64)
+    sups = true_supports()
+
+    def no_launches(what):
+        check(not any(dispatch.launches.values()),
+              f"{what} launched {dispatch.launches}")
+
+    def check_lanes(what, X, errs, lanes, problem=(A64, Y)):
+        """Certified lanes (an (l, n) X, its errors) with exact supports,
+        each certificate against a float64 recompute on ``problem``."""
+        X = X.reshape(len(lanes), -1)
+        errs = np.asarray(errs).reshape(-1)
+        check(bool((errs <= TOL).all()), f"{what}: errors {errs}")
+        check_l2_certificate(what, problem[0], problem[1][lanes], X, errs,
+                             np.arange(len(lanes)), K_SPARSE)
+        for i, lane in enumerate(lanes):
+            top = set(np.argsort(-np.abs(X[i]))[:K_SPARSE].tolist())
+            check(top == sups[lane], f"{what}: lane {lane} support wrong")
+
+    solver = Omp(A, device=dev)
+    plan = solver.explain()
+    check(plan["formulation"] == "OMP loop (corr=gram)"
+          and plan["kernels"] == {}, f"OMP core plan {plan}")
+    solver.solve(Y[0], TOL)                     # the Gram, once
+    dispatch.reset_launches()
+    for lane in range(4):
+        x, rep = solver.solve(Y[lane], TOL)
+        check_lanes(f"OMP core solve lane {lane}", x.cpu().numpy(),
+                    [rep.solution_error], [lane])
+    no_launches("OMP core solve")
+    _, first = solver.solve_on_device(torch.from_numpy(Y[0]).to(dev), TOL)
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, rep = solver.solve(Y[0], TOL)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    q1, med, q3 = np.percentile(times, [25, 50, 75])
+    phase(f"OMP core solve {M}x{N} k={K_SPARSE} certified: plan "
+          f"'{plan['formulation']}', 4/4 lanes certified, top-{K_SPARSE} "
+          f"support exact, certificate = float64 recompute; {rep.iter} "
+          f"picks (the one-pass pass: {int(first.iter)} picks, certificate "
+          f"{float(first.solution_error):.3e}"
+          f"{', re-solved at high' if float(first.solution_error) > TOL else ''}"
+          f"); median {med * 1e3:.3f} ms per solve over 10 fenced runs "
+          f"(quartiles {q1 * 1e3:.3f}, {q3 * 1e3:.3f}); launches 0 [{card}]")
+
+    # an 8-lane batch in the small-batch regime, and gram=True pinning
+    # the Gram-gather core past the crossover
+    for what, s in (("OMP core solve_batch", solver),
+                    ("OMP core gram=True", Omp(A, gram=True, device=dev))):
+        plan = s.explain(batch=8, max_iterations=OMP_MAX_ITER)
+        check(plan["formulation"] == "vmapped OMP loop (corr=gram)",
+              f"{what}: plan {plan}")
+        wide = s.explain(batch=BATCH, max_iterations=OMP_MAX_ITER)["corr"]
+        check(wide == ("gram" if s is not solver else "driver"),
+              f"{what}: batch {BATCH} routes to {wide}")
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        X, rep = s.solve_batch(Y, TOL, OMP_MAX_ITER)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        no_launches(what)
+        check_lanes(what, X.cpu().numpy(), rep.solution_error.cpu().numpy(),
+                    list(range(8)))
+        phase(f"{what} 8 lanes k_max {plan['k_max']}: plan "
+              f"'{plan['formulation']}' (batch {BATCH}: corr {wide}), 8/8 "
+              f"certified (max {float(rep.solution_error.max()):.3e}), "
+              f"supports exact, picks {rep.iter.tolist()}, {dt * 1e3:.1f} ms "
+              f"(first call), launches 0")
+
+    # exact against fast mode at "highest" on one lane
+    dispatch.reset_launches()
+    outs = {mode: Omp(A, mode=mode, precision="highest",
+                      device=dev).solve(Y[1], TOL)
+            for mode in ("fast", "exact")}
+    no_launches("OMP exact/fast solves")
+    (xf, rf), (xe, re_) = outs["fast"], outs["exact"]
+    gap = float((xf - xe).abs().max())
+    # two f32 routes to the same 64-column least squares
+    check(rf.iter == re_.iter and gap <= 1e-4,
+          f"OMP exact vs fast: picks {re_.iter} vs {rf.iter}, max|dX| {gap}")
+    check_lanes("OMP exact solve", xe.cpu().numpy(), [re_.solution_error],
+                [1])
+    phase(f"OMP core exact vs fast highest: {rf.iter} picks each, max|dX| "
+          f"{gap:.3e} <= 1e-4")
+
+    # float64, and a gOMP picks=4 single solve
+    dispatch.reset_launches()
+    A64f, Y64 = bench.make_problem(M, N, K_SPARSE, 1, dtype=np.float64)
+    x64, r64 = Omp(A64f, device=dev).solve(Y64[0], TOL)
+    xg, rg = Omp(A, picks=GOMP_PICKS, device=dev).solve(Y[2], TOL)
+    no_launches("OMP float64 and gOMP solves")
+    check(x64.dtype == torch.float64, f"float64 solve gave {x64.dtype}")
+    check_lanes("OMP float64 solve", x64.cpu().numpy(), [r64.solution_error],
+                [0], (A64f, Y64))
+    check_lanes("gOMP core solve", xg.cpu().numpy(), [rg.solution_error], [2])
+    phase(f"OMP core float64 solve: certified {r64.solution_error:.3e}, "
+          f"{r64.iter} picks, support exact; gOMP picks={GOMP_PICKS} solve: "
+          f"certified {rg.solution_error:.3e}, {rg.iter} columns, support "
+          f"exact; launches 0")
 
 
 def cross_device(dev):
@@ -929,6 +1190,12 @@ def main() -> int:
     results = {"normal_matvec_fused_bf16": check_k1(dev, card),
                "find_max_gamma_fused": tiered(check_k2, SCAN_TIERS, K_MAX),
                "transition": check_k3(dev, card, K_MAX)}
+    # K1 and K2 at the gram-free paths' shape (phase lines; the JSON line
+    # keeps the main path's)
+    gf_m, gf_n, _ = GF_SHAPE
+    check_k1(dev, card, gf_m, gf_n)
+    check_k2(dev, card, GF_MAX_ITER + 1, gf_n)
+    torch.cuda.empty_cache()
     check_k3(dev, card, 200)
     results["omp_insert"] = tiered(check_k4, OMP_TIERS + GOMP_TIERS,
                                    OMP_MAX_ITER)
@@ -952,7 +1219,10 @@ def main() -> int:
         ms, plain, library, b_ms, by = fused[name][FUSED_REPORTED]
         results[name] = result(fused_errs[name], ms, plain, library, b_ms,
                                by)
+    for name, count in gram_free_paths(dev, card).items():
+        launches[name] += count
     core_paths(dev, card)
+    omp_core_paths(dev, card)
     torch.cuda.synchronize()
     cross_device(dev)
     torch.cuda.synchronize()

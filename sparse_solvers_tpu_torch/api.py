@@ -1,13 +1,14 @@
 """Public solver API — the port of ``sparse_solvers_tpu/api.py``'s
-``Homotopy`` façade and ``Omp``'s batched subset.
+``Homotopy`` and ``Omp`` façades.
 
-Ported: ``Homotopy`` whole on one device except the host engine (every
-``solve*`` route, both modes, float32 and float64, with or without a
-Gram), ``Omp``'s batch driver route and ``update_column``, and the module
-functions ``densify_batch``, ``densify_path``, ``lasso_at``,
-``lasso_at_batch``, ``reconstruct_signal`` and ``norm_l1``. Every other
-route raises ``NotImplementedError`` naming its ROADMAP.md item; the port
-adds no feature the JAX package lacks.
+Ported: ``Homotopy`` and ``Omp`` whole on one device except the host
+engine and ``mesh=`` (every ``solve*`` route, both modes, float32 and
+float64, with a Gram, without one and gram-free in the batch drivers, and
+``picks`` for gOMP), ``update_column``, and the module functions
+``densify_batch``, ``densify_path``, ``lasso_at``, ``lasso_at_batch``,
+``reconstruct_signal`` and ``norm_l1``. Every other route raises
+``NotImplementedError`` naming its ROADMAP.md item; the port adds no
+feature the JAX package lacks.
 
 PyTorch semantics against the JAX façade:
   * ``Homotopy(A, ..., device="cuda")`` and ``Omp(A, ..., device="cuda")``
@@ -32,9 +33,10 @@ from .linalg import norms as _norms
 from .ops import blas as _blas
 from .ops import dispatch as _dispatch
 from .ops.operators import DenseOperator
-from .reports import HomotopyReport
+from .reports import HomotopyReport, OmpReport
 from .solvers import homotopy as _homotopy
 from .solvers import homotopy_batch as _homotopy_batch
+from .solvers import omp as _omp
 from .solvers import omp_batch as _omp_batch
 from .utils import ndview
 
@@ -84,8 +86,8 @@ def _certified_l2_error(A: torch.Tensor, x: torch.Tensor,
     """ℓ₂ residual certificate ‖y − Ax‖₂ at "high" precision (fp32, TF32
     off) — the greedy family's convergence criterion, recomputed from the
     returned solution, per lane of x (b, n) against y (b, m): the JAX
-    façade's wrapper of the per-lane OMP core (ROADMAP.md Queue 1 item 6).
-    The driver route reports the driver's own certificate
+    façade's wrapper of the per-lane OMP core (api.py:1733-1736). The
+    driver route reports the driver's own certificate
     (``omp_batch.l2_certificate``) and never calls this. Looked up at call
     time, so tests can replace it to force certificate failures."""
     with _blas.precision_scope("high"):
@@ -99,6 +101,22 @@ def _merge_lanes(sel: torch.Tensor, new, old, dense: bool):
         return torch.where(sel[:, None], new, old)
     return (torch.where(sel[:, None], new[0], old[0]),
             torch.where(sel[:, None], new[1], old[1]))
+
+
+def _compact_from_dense(X: torch.Tensor, k_max: int):
+    """The compact (values, indices) form of a dense batch solution, the
+    per-lane core's ``dense=False`` (api.py:2103-2115): per lane the ≤
+    k_max nonzero coordinates in ascending index order, sentinel n beyond
+    them. An exactly-zero active coordinate contributes nothing either
+    way."""
+    n = X.shape[1]
+    nz = X != 0
+    order = torch.sort((~nz).to(torch.int8), dim=1,
+                       stable=True).indices[:, :k_max]
+    keep = nz.gather(1, order)
+    vals = torch.where(keep, X.gather(1, order), torch.zeros_like(X[:, :1]))
+    idxs = torch.where(keep, order, torch.full_like(order, n))
+    return vals, idxs.to(torch.int32)
 
 
 def _first_lane(out):
@@ -128,6 +146,7 @@ def _update_column_impl(solver, j: int, col) -> None:
     A = solver._A.clone()
     A[:, j] = v
     solver._A = A
+    solver._AT_cache.clear()
     if solver._G_cache is not None:
         # the new Gram row/col g = Aᵀ_new v, at the precision the lazy
         # Gram was built at (the updated column lands vᵀv on the diagonal)
@@ -153,6 +172,7 @@ class _GramSolver:
         self._A = ndview.as_matrix(A, device=self._device)
         self._m, self._n = self._A.shape
         self._G_cache = None
+        self._AT_cache: dict[bool, torch.Tensor] = {}
 
     def _gram_auto(self, gram: bool | None) -> bool:
         """``gram=None`` is on while n² values of A's dtype fit in 1 GiB
@@ -183,6 +203,16 @@ class _GramSolver:
                 self._G_cache = _blas.xgemm(self._A, self._A, trans_a=True)
         return self._G_cache
 
+    def _transposed(self) -> torch.Tensor:
+        """The gram-free drivers' transposed copy of A for the scope's
+        precision (``homotopy_batch.transposed_copy``), made once per
+        solver and precision: bf16 on the one-pass path, A's dtype for a
+        re-solve at "high"."""
+        key = _blas.current_precision() == "default"
+        if key not in self._AT_cache:
+            self._AT_cache[key] = _homotopy_batch.transposed_copy(self._A)
+        return self._AT_cache[key]
+
     def update_column(self, j: int, col) -> None:
         """Replace column j of the sensing matrix on the solver's device
         (gallery churn): the cached Gram's row and column are rewritten
@@ -210,9 +240,9 @@ class Homotopy(_GramSolver):
     Parameters follow ``sparse_solvers_tpu.Homotopy``; ``device`` (default
     "cuda") is where A, the Gram and every solve live. Batches outside the
     sparse-matvec regime take the slot-space driver (float32, fast mode,
-    with a Gram); single solves, the sparse-matvec regime, float64 and
-    ``mode="exact"`` take the per-lane core. ``engine`` "auto" and "jax"
-    both run these torch routes.
+    gram-free without a Gram); single solves, the sparse-matvec regime,
+    float64 and ``mode="exact"`` take the per-lane core. ``engine`` "auto"
+    and "jax" both run these torch routes.
     """
 
     def __init__(self, A, k_max: int | None = None, mode: str = "fast",
@@ -295,6 +325,8 @@ class Homotopy(_GramSolver):
         if batch_native:
             plan["capacity_tiers"] = _homotopy_batch._plan_tiers(
                 k_max, max_iterations, None)
+            if not self._gram_enabled:
+                plan["gram_free"] = True  # the insert's column on the fly
             plan["fused_q"] = path_precision == "default"
             plan["kernels"] = _dispatch.explain(self._device, (
                 ("normal_matvec_fused_bf16",) * plan["fused_q"]
@@ -320,18 +352,15 @@ class Homotopy(_GramSolver):
         # below restores trust in the result
         path_precision = "default" if certified else precision
         k_max, sparse, batch_native = self._plan(max_iterations, batch)
-        # an empty batch takes the driver's early return, which needs no G
-        if batch_native and not self._gram_enabled and batch:
-            raise _unported("the gram-free driver route (gram=False or n² "
-                            "above 1 GiB, outside the sparse-matvec "
-                            "regime)", 5)
 
         def path(A, G, Y, tol):
             with _blas.precision_scope(path_precision):
                 if batch_native:
+                    # without a Gram the driver runs gram-free
                     return _homotopy_batch.solve_homotopy_batch(
                         A, G, Y, tol, max_iterations, k_max, dense=dense,
-                        record_path=record_path)
+                        record_path=record_path,
+                        AT=None if G is not None else self._transposed())
                 return _homotopy.solve_homotopy_core(
                     DenseOperator(A, G), self._n, Y, tol, max_iterations,
                     k_max, mode=self._mode, sparse_matvec=sparse,
@@ -484,20 +513,24 @@ class Homotopy(_GramSolver):
 
 
 class Omp(_GramSolver):
-    """Orthogonal Matching Pursuit over a fixed sensing matrix A (m×n),
-    batched fast mode on the slot-space driver — grow each lane's support
-    by the column most correlated with its residual (``picks`` of them
-    per round for gOMP), re-solve least squares on it, stop at
-    ``‖y − Ax‖₂ ≤ tolerance`` or after ``max_iterations`` column picks.
+    """Orthogonal Matching Pursuit over a fixed sensing matrix A (m×n) —
+    grow each lane's support by the column most correlated with its
+    residual (``picks`` of them per round for gOMP), re-solve least
+    squares on it, stop at ``‖y − Ax‖₂ ≤ tolerance`` or after
+    ``max_iterations`` column picks.
 
     Parameters follow ``sparse_solvers_tpu.Omp``; ``device`` (default
-    "cuda") is where A, the Gram and every solve live. Ported: float32 A,
-    ``mode="fast"``, ``engine`` "auto" or "jax" (both run the device
-    driver here), every ``precision`` including "certified" (the default:
-    the pick loop at one-pass precision, a high-precision residual
-    certificate per lane, and ``solve_batch`` re-solving lanes that miss
-    the tolerance at "high"), ``picks`` ≥ 1, and the auto Gram (while n²
-    float32 fits in 1 GiB).
+    "cuda") is where A, the Gram and every solve live. float32 fast-mode
+    batches outside the small-batch regime batch·k_max < 2m take the
+    slot-space driver (gram-free without a Gram); single solves, that
+    regime, float64, ``mode="exact"`` and ``gram=True`` take the per-lane
+    core (``solvers/omp.py``). ``gram``: None holds AᵀA while n² values
+    fit in 1 GiB, True also pins the Gram-gather correlation update, False
+    holds none. ``precision`` "certified" (the fast-mode default) runs the
+    pick loop at one-pass precision with a high-precision residual
+    certificate per lane, and ``solve``/``solve_batch`` re-solve lanes that
+    miss the tolerance at "high". ``engine`` "auto" and "jax" both run
+    these torch routes.
     """
 
     def __init__(self, A, k_max: int | None = None, mode: str = "fast",
@@ -536,27 +569,23 @@ class Omp(_GramSolver):
                 "or use mode='fast'")
         if k_max is not None and k_max < 1:
             raise ValueError(f"k_max must be >= 1, got {k_max}")
-        if mode == "exact":
-            raise _unported("mode='exact' (the per-lane OMP core)", 6)
         if engine == "native":
             raise _unported("engine='native' (the C++ host engine)", 4)
         if mesh is not None:
             raise _unported("mesh= (multi-GPU solving)", 10)
-        if gram is True:
-            raise _unported("gram=True (the vmapped Gram-gather OMP core)", 6)
         self._load(A, device)
-        if self._A.dtype != torch.float32:
-            raise _unported("float64 A (the per-lane OMP core)", 6)
-        if not self._gram_auto(gram):
-            raise _unported("the gram-free route (gram=False or n² above "
-                            "1 GiB)", 5)
-        self._gram_enabled = True
         if picks > self._n:
             raise ValueError(
                 f"picks must be <= n = {self._n} (each round selects "
                 f"picks inactive columns), got {picks}")
         self._k_max = k_max
-        self._precision = precision or "certified"
+        self._mode = mode
+        self._precision = precision or ("certified" if mode == "fast"
+                                        else "highest")
+        # an explicit True pins the Gram-gather formulation (auto only
+        # routes it); exact mode never reads the Gram (api.py:1530-1536)
+        self._gram_forced = gram is True
+        self._gram_enabled = self._gram_auto(gram) and mode == "fast"
         self._picks = picks
 
     def _resolved_k_max(self, max_iterations: int) -> int:
@@ -564,12 +593,23 @@ class Omp(_GramSolver):
             return min(self._k_max, self._n, self._m)
         return max(1, min(max_iterations, self._m, self._n))
 
+    def _route_corr(self, batch: int | None, max_iterations: int) -> str:
+        """The per-lane core's correlation update (api.py:1674-1689): the
+        Gram gathers while batch·k_max < 2m or where ``gram=True`` pins
+        them, else one column gather and an Aᵀ pass per lane ("sparse")
+        below that crossover and two full products past it ("dense")."""
+        small = ((batch or 1) * self._resolved_k_max(max_iterations)
+                 < 2 * self._m)
+        if self._gram_enabled and (self._gram_forced or small):
+            return "gram"
+        return "sparse" if small else "dense"
+
     def _route_driver(self, batch: int | None,
                       max_iterations: int = 100) -> bool:
-        """The slot-space driver serves float32 batches outside the
-        small-batch regime batch·k_max < 2m (api.py:1691-1709), which the
-        JAX package keeps on the vmapped Gram-gather core."""
-        if batch is None:
+        """The slot-space driver serves float32 fast-mode batches outside
+        the small-batch regime batch·k_max < 2m (api.py:1691-1709);
+        ``gram=True`` pins the Gram-gather core instead."""
+        if batch is None or self._mode != "fast" or self._gram_forced:
             return False
         small = batch * self._resolved_k_max(max_iterations) < 2 * self._m
         return _homotopy_batch.route_batch_native(
@@ -581,25 +621,33 @@ class Omp(_GramSolver):
         formulation runs and which form of each kernel. No side effects."""
         k_max = self._resolved_k_max(max_iterations)
         driver = self._route_driver(batch, max_iterations)
-        unported = "unported (the vmapped OMP core, ROADMAP.md Queue 1 item 6)"
         plan = {
             "engine": "torch",
             "device": str(self._device),
-            "mode": "fast",
+            "mode": self._mode,
             "precision": self._precision,
-            "corr": "driver" if driver else unported,
-            "gram_free": False,
             "k_max": k_max,
-            "formulation": ("slot-space OMP batch driver (fused q + "
-                            "in-place insert/LS)" if driver else unported),
         }
+        if driver:
+            plan.update(
+                corr="driver", gram_free=not self._gram_enabled,
+                formulation=("slot-space OMP batch driver (fused q + "
+                             "in-place insert/LS" + (
+                                 ")" if self._gram_enabled
+                                 else ", gram-free)")))
+        else:
+            corr = self._route_corr(batch, max_iterations)
+            plan.update(corr=corr, formulation=(
+                "vmapped OMP loop" if batch is not None else "OMP loop")
+                + f" (corr={corr})")
         if self._picks > 1:
             plan["picks"] = self._picks
         path_precision = self._precision
         if self._precision == "certified":
             path_precision = plan["path_precision"] = "default"
-            plan["certificate"] = ("‖y−Ax‖₂ at high precision; solve_batch "
-                                   "re-solves lanes that miss the tolerance")
+            plan["certificate"] = ("‖y−Ax‖₂ at high precision; solve/"
+                                   "solve_batch re-solve lanes that miss "
+                                   "the tolerance")
         if driver:
             plan["capacity_tiers"] = _homotopy_batch._plan_tiers(
                 k_max, max_iterations, None)
@@ -607,33 +655,87 @@ class Omp(_GramSolver):
             plan["kernels"] = _dispatch.explain(self._device, (
                 ("normal_matvec_fused_bf16",) * plan["fused_q"]
                 + ("omp_insert",)))
+        else:
+            # the core runs plain products and gathers, as the JAX core
+            # runs no Pallas kernel
+            plan["kernels"] = {}
         return plan
 
     def _fn(self, max_iterations: int, batch: int | None,
             precision: str | None = None, dense: bool = True):
         """The solve function for this shape: ``run(A, G, Y, tol)`` →
         (X, report), or ((values, indices), report) when ``dense=False``;
-        the report's error is the driver's ℓ₂ certificate. ``precision``
-        overrides the instance setting (the certified re-solve uses
-        it)."""
+        ``Y`` is (m,) for ``batch=None`` and (batch, m) otherwise. Under
+        "certified" the report's error is the certificate: the driver's
+        own, or ``_certified_l2_error`` of the core's solution.
+        ``precision`` overrides the instance setting (the certified
+        re-solve uses it)."""
         _check_max_iterations(max_iterations)
         precision = precision or self._precision
+        certified = precision == "certified"
         # certified: the pick loop runs at one-pass precision, the
-        # driver's high-precision certificate restores trust in the result
-        path_precision = "default" if precision == "certified" else precision
+        # high-precision certificate restores trust in the result
+        path_precision = "default" if certified else precision
         k_max = self._resolved_k_max(max_iterations)
-        if not self._route_driver(batch, max_iterations):
-            raise _unported(
-                f"the small-batch regime (batch·k_max = {batch * k_max} < "
-                f"2m = {2 * self._m}; the vmapped OMP core)", 6)
+        driver = self._route_driver(batch, max_iterations)
+        corr = None if driver else self._route_corr(batch, max_iterations)
 
-        def run(A, G, Y, tol):
+        def run(A, G, y, tol):
+            Y = y if batch is not None else y[None]
             with _blas.precision_scope(path_precision):
-                return _omp_batch.solve_omp_batch(
-                    A, G, Y, tol, max_iterations, k_max, dense=dense,
-                    picks=self._picks)
+                if driver:
+                    # without a Gram the driver runs gram-free
+                    return _omp_batch.solve_omp_batch(
+                        A, G, Y, tol, max_iterations, k_max, dense=dense,
+                        picks=self._picks,
+                        AT=None if G is not None else self._transposed())
+                # G rides along for the per-pick inserts whenever it
+                # exists; corr selects only the correlation update
+                X, rep = _omp.solve_omp_core(
+                    DenseOperator(A, G), self._n, Y, tol, max_iterations,
+                    k_max, mode=self._mode, corr=corr, picks=self._picks)
+            if certified:
+                rep = rep._replace(solution_error=_certified_l2_error(
+                    A, X, Y).to(rep.solution_error.dtype))
+            if batch is None:
+                return _first_lane((X, rep))
+            if not dense:
+                return _compact_from_dense(X, k_max), rep
+            return X, rep
 
         return run
+
+    def solve(self, b, tolerance: float | None = None,
+              max_iterations: int = 100):
+        """Greedy-solve y ≈ Ax with ≤ max_iterations support picks;
+        returns (x, OmpReport) with x an (n,) tensor on the solver's
+        device. Under "certified", a solution whose certificate misses the
+        tolerance is re-solved at "high" (api.py:1771-1803)."""
+        y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
+                             device=self._device)
+        tol = self._tol(tolerance)
+        _check_max_iterations(max_iterations)
+        x, rep = self._fn(max_iterations, batch=None)(self._A, self._G, y,
+                                                      tol)
+        it, err = int(rep.iter), float(rep.solution_error)
+        # NaN-safe predicate; a lane that exhausted max_iterations is
+        # reported as-is
+        if (self._precision == "certified" and not (err <= tol)
+                and it < max_iterations):
+            x, rep = self._fn(max_iterations, batch=None,
+                              precision="high")(self._A, self._G, y, tol)
+            it, err = int(rep.iter), float(rep.solution_error)
+        return x, OmpReport(iter=it, solution_error=err)
+
+    def solve_on_device(self, y: torch.Tensor, tolerance,
+                        max_iterations: int = 100):
+        """Solve for an (m,) tensor already on the solver's device, without
+        the certified re-solve: under "certified" the report's
+        solution_error is the certificate, to be checked against the
+        tolerance downstream. Returns (x, OmpReportArrays of 0-d
+        tensors)."""
+        return self._fn(max_iterations, batch=None)(self._A, self._G, y,
+                                                    tolerance)
 
     def solve_batch(self, B, tolerance: float | None = None,
                     max_iterations: int = 100, dense: bool = True):
@@ -642,9 +744,8 @@ class Omp(_GramSolver):
         Returns (X (batch, n), OmpReportArrays of per-lane tensors), on
         the solver's device. ``dense=False`` returns ``(values, indices,
         report)``, the compact slot-space solution; ``densify_batch``
-        rebuilds X exactly. Under "certified", each lane's certificate is
-        the driver's (``omp_batch.l2_certificate``), and lanes that miss
-        the tolerance are re-solved at "high" and merged
+        rebuilds X exactly. Under "certified", lanes whose certificate
+        misses the tolerance are re-solved at "high" and merged
         (api.py:1838-1861)."""
         Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
                                    device=self._device)
@@ -656,8 +757,7 @@ class Omp(_GramSolver):
             # NaN-safe predicate: a non-finite certificate counts as
             # failing; lanes that exhausted max_iterations are reported
             # as-is. The re-solve covers the full batch and the merge
-            # keeps the fast result wherever the certificate held. The
-            # driver's report already carries the certificate.
+            # keeps the fast result wherever the certificate held.
             errs = rep.solution_error.cpu().numpy()
             bad = (~(errs <= tol)) & (rep.iter.cpu().numpy()
                                       < max_iterations)
@@ -685,15 +785,6 @@ class Omp(_GramSolver):
         report), or ((values, indices), report) when ``dense=False``."""
         return self._fn(max_iterations, batch=Y.shape[0], dense=dense)(
             self._A, self._G, Y, tolerance)
-
-    # --- routes not ported yet (ROADMAP.md Queue 1) -----------------------
-
-    def solve(self, b, tolerance=None, max_iterations: int = 100):
-        raise _unported("Omp.solve (the per-lane OMP core)", 6)
-
-    def solve_on_device(self, y, tolerance, max_iterations: int = 100):
-        raise _unported("Omp.solve_on_device (the per-lane OMP core)", 6)
-
 
 def densify_batch(values, indices, n: int) -> torch.Tensor:
     """Scatter a compact slot-space batch solution (``solve_batch(...,

@@ -9,7 +9,10 @@ q = AᵀA·d (the K1 kernel at "default" precision, two fp32 products
 otherwise), runs the γ scan (K2), gathers the insert's Gram column, applies
 the active-set transition (K3), and updates c, ‖c‖∞ and the mask. The
 capacity ladder (``_plan_tiers``) runs the early path in smaller slot
-buffers and zero-pads the state into the next tier (``_embed``).
+buffers and zero-pads the state into the next tier (``_embed``). Without
+a Gram (``G=None``, the large-n regime where n² cannot be held) the
+insert's column comes from ``make_gram_u1`` over a transposed copy of A,
+and vᵀv from the exact f32 column norms.
 
 PyTorch idiom against the JAX form:
   * the loop is a Python ``while`` on the host that reads ``any(live)``
@@ -24,7 +27,7 @@ PyTorch idiom against the JAX form:
     re-entered by its init and body, as JAX captures it at trace time.
 
 Left out here (ROADMAP.md Queue 1): the sharded modes and ``psum`` (item
-10) and the gram-free route ``G=None`` (item 5).
+10).
 """
 
 from __future__ import annotations
@@ -99,6 +102,58 @@ def gram_slot_gather(G: torch.Tensor, idx: torch.Tensor,
     return u1, G[rows, rows]
 
 
+def transposed_copy(A: torch.Tensor) -> torch.Tensor:
+    """The gram-free insert column's operand: Aᵀ (n + 1, m), contiguous,
+    with a zero row at index n so that sentinel slots gather zeros (JAX's
+    ``mode="fill"``). bf16 in the "default" scope, where the dot's inputs
+    are bf16 either way (homotopy_batch.py:286-288), A's dtype otherwise.
+    At 2048×65536 a bf16 copy is 256 MiB: callers that solve again make
+    it once (the façades keep one per precision)."""
+    one_pass = blas.current_precision() == "default"
+    m, n = A.shape
+    AT = A.new_zeros((n + 1, m),
+                     dtype=torch.bfloat16 if one_pass else A.dtype)
+    AT[:n] = A.T
+    return AT
+
+
+def make_gram_u1(AT: torch.Tensor):
+    """Gram-free insert-column factory (homotopy_batch.py:278-302): u1[j] =
+    ⟨A e_ind_j, A e_idx⟩ over the slots, from two row gathers of ``AT``
+    (``transposed_copy``) and a (b, K, m)·(b, m) batched dot with fp32
+    accumulation. A bf16 copy is widened to f32 after the gather (exact):
+    a bf16 product would round u1 to bf16, where JAX asks for
+    ``preferred_element_type=float32``; bf16 values multiply exactly under
+    the "default" scope's TF32, and an f32 copy multiplies with TF32 off
+    under "high" and "highest". Returns ``gram_u1(idx, indices)`` → (b,
+    K)."""
+    def gram_u1(idx: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+        V = AT[idx.long()].float()          # (b, m)
+        C = AT[indices.long()].float()      # (b, K, m), sentinel: zero rows
+        return torch.matmul(C, V.unsqueeze(-1)).squeeze(-1)
+
+    return gram_u1
+
+
+def make_insert_column(A: torch.Tensor, G: torch.Tensor | None,
+                       AT: torch.Tensor | None = None):
+    """The insert's Gram entries, shared by both drivers: ``(gdiag,
+    insert_column)`` with ``insert_column(idx, indices)`` → (u1 (b, K),
+    vtv (b,)). With a Gram, its diagonal and ``gram_slot_gather``;
+    gram-free (``G=None``), the exact f32 column norms Σᵢ A²ᵢⱼ
+    (homotopy_batch.py:590, they feed the insert's degeneracy guard) and
+    ``make_gram_u1`` over ``AT`` (``transposed_copy(A)``, made here when
+    not given)."""
+    n = A.shape[1]
+    if G is not None:
+        return torch.diagonal(G), (
+            lambda idx, indices: gram_slot_gather(G, idx, indices, n))
+    gdiag = (A * A).sum(dim=0)
+    gram_u1 = make_gram_u1(transposed_copy(A) if AT is None else AT)
+    return gdiag, (lambda idx, indices: (gram_u1(idx, indices),
+                                         gdiag[idx.long()]))
+
+
 def _plan_tiers(k_max: int, max_iterations: int, ladder) -> list[int]:
     """Capacity ladder (homotopy_batch.py:305-347): after ``i`` iterations
     a lane holds at most ``i + 1`` support members, so iterations
@@ -147,12 +202,15 @@ def _embed(s: _BState, K2: int, n: int) -> _BState:
 def solve_homotopy_batch(A: torch.Tensor, G: torch.Tensor | None,
                          Y: torch.Tensor, tolerance, max_iterations: int,
                          k_max: int, ladder=None, dense: bool = True,
-                         record_path: bool = False):
+                         record_path: bool = False,
+                         AT: torch.Tensor | None = None):
     """Fast-mode batched homotopy — the slot-space throughput driver.
 
-    A: (m, n) f32; G = AᵀA (n, n); Y: (b, m), all on one device. Returns
-    (X (b, n), HomotopyReportArrays of per-lane tensors). ``ladder``
-    controls the capacity tiers (see _plan_tiers).
+    A: (m, n) f32; G = AᵀA (n, n), or None to run gram-free; Y: (b, m), all
+    on one device. Returns (X (b, n), HomotopyReportArrays of per-lane
+    tensors). ``ladder`` controls the capacity tiers (see _plan_tiers).
+    ``AT``: the gram-free route's ``transposed_copy(A)``, made in the same
+    precision scope; made here when not given.
 
     ``dense=False`` skips the final (b, n) scatter and returns the
     compact slot-space solution ``((values, indices), report)`` — values
@@ -189,8 +247,10 @@ def solve_homotopy_batch(A: torch.Tensor, G: torch.Tensor | None,
     for t, Kt in enumerate(tiers):
         # non-final tiers stop before any lane could need slot Kt
         cap = None if t == len(tiers) - 1 else Kt - 1
+        if G is None and AT is None:
+            AT = transposed_copy(A)
         init, body, lane_live = make_stepper(
-            A, G, Y, tolerance, max_iterations, Kt, it_cap=cap)
+            A, G, Y, tolerance, max_iterations, Kt, it_cap=cap, AT=AT)
         state = init() if state is None else _embed(state, Kt, n)
         if record_path:
             hist = _grow_history(hist, state, T, Kt, n)
@@ -238,16 +298,13 @@ def densify_batch(values, indices, n: int) -> torch.Tensor:
 
 def make_stepper(A: torch.Tensor, G: torch.Tensor | None, Y: torch.Tensor,
                  tolerance, max_iterations: int, k_max: int,
-                 it_cap: int | None = None):
+                 it_cap: int | None = None, AT: torch.Tensor | None = None):
     """Build ``(init, body, lane_live)`` for the batch driver — exposed so
     tests can step the iteration. ``init()`` computes the initial state;
     ``body(s)`` runs one iteration and consumes ``s`` (in-place updates);
     ``lane_live(s)`` is the per-lane do-while condition. ``it_cap``
-    freezes lanes at an iteration bound (a capacity-ladder tier)."""
-    if G is None:
-        raise NotImplementedError(
-            "the gram-free route (G=None) is not ported yet: ROADMAP.md "
-            "Queue 1 item 5")
+    freezes lanes at an iteration bound (a capacity-ladder tier). ``G=None``
+    runs gram-free (``make_insert_column``)."""
     b = Y.shape[0]
     n = A.shape[1]
     K = k_max
@@ -261,8 +318,8 @@ def make_stepper(A: torch.Tensor, G: torch.Tensor | None, Y: torch.Tensor,
     prec = blas.current_precision()
     dev = A.device
     bidx = torch.arange(b, device=dev)
-    gdiag = torch.diagonal(G)
     qprod = make_qprod(A)
+    gdiag, insert_column = make_insert_column(A, G, AT)
 
     def init() -> _BState:
         # solve_homotopy_core's init, batched (homotopy-cpu.cpp:215-229)
@@ -320,7 +377,7 @@ def make_stepper(A: torch.Tensor, G: torch.Tensor | None, Y: torch.Tensor,
         gamma = torch.where(live & ~empty, gamma_raw,
                             torch.zeros_like(gamma_raw))
 
-        u1, vtv = gram_slot_gather(G, idx, s.indices, n)
+        u1, vtv = insert_column(idx, s.indices)
         cnew = _take1(s.c, idx) - gamma * _take1(q, idx)
         doins = live & ~present & (s.kk < K)
         # `~empty` gates the remove: removing the only active member

@@ -8,7 +8,9 @@ and an int8 membership mask. Each round picks the largest inactive |c|
 (``picks`` of them for gOMP, by iterated masked argmax), gathers the
 insert's Gram column, applies the guarded insert + LS re-solve (K4, once
 per pick), and pays one correlation pass c = c₀ − AᵀA·x̂ (the K1 kernel at
-"default" precision, two fp32 products otherwise). c₀ = AᵀY is computed
+"default" precision, two fp32 products otherwise). Without a Gram
+(``G=None``) the insert's column comes from the Homotopy driver's
+``make_insert_column``, as with one. c₀ = AᵀY is computed
 once at "highest"; ‖r‖² follows the LS identity ‖y‖² − b_actᵀ·coef in the
 loop; the reported error is a post-loop ℓ₂ certificate ‖y − Ax‖₂ at
 "high" (or "highest" when that is in force). The capacity ladder
@@ -27,8 +29,7 @@ PyTorch idiom against the JAX form:
     (kk == K, where JAX's ``.at[].set`` drops the write) writes nothing
     and never touches slot K−1.
 
-Left out here (ROADMAP.md Queue 1): the gram-free route ``G=None`` (item
-5) and the sharded arguments (item 10).
+Left out here (ROADMAP.md Queue 1): the sharded arguments (item 10).
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ import torch.nn.functional as F
 from ..linalg import active_set
 from ..ops import blas
 from ..ops.cuda import omp_insert as _oins
-from .homotopy_batch import _plan_tiers, _take1, gram_slot_gather, make_qprod
+from .homotopy_batch import (_plan_tiers, _take1, make_insert_column,
+                             make_qprod)
 from .omp import OmpReportArrays
 
 
@@ -85,11 +87,13 @@ def l2_certificate(A: torch.Tensor, X: torch.Tensor,
 def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
                     Y: torch.Tensor, tolerance, max_iterations: int,
                     k_max: int, ladder=None, dense: bool = True,
-                    picks: int = 1):
+                    picks: int = 1, AT: torch.Tensor | None = None):
     """Batched greedy solve; returns (X (b, n), OmpReportArrays).
 
-    A: (m, n) f32; G = AᵀA (n, n); Y: (b, m), all on one device. The
-    precision scope in force is the path's ("default" runs K1).
+    A: (m, n) f32; G = AᵀA (n, n), or None to run gram-free; Y: (b, m), all
+    on one device. The precision scope in force is the path's ("default"
+    runs K1). ``AT``: the gram-free route's ``transposed_copy(A)``, made in
+    the same precision scope; made here when not given.
     ``ladder`` controls the capacity tiers (see ``_plan_tiers``).
     ``dense=False`` returns the compact slot-space solution ``((values,
     indices), report)`` — values (b, k_max) at columns indices (b, k_max),
@@ -110,10 +114,6 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
         raise ValueError(
             "the batch-native OMP driver is float32 (its kernels are); got "
             f"{dtype}")
-    if G is None:
-        raise NotImplementedError(
-            "the gram-free route (G=None) is not ported yet: ROADMAP.md "
-            "Queue 1 item 5")
     dev = A.device
     if b == 0:
         report = OmpReportArrays(
@@ -139,6 +139,7 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
         C0 = blas.xgemm(Y, A)
     yty = (Y * Y).sum(dim=1)
     qprod = make_qprod(A)
+    _, insert_column = make_insert_column(A, G, AT)
 
     def lane_live(s: _OBState, it_cap: int | None) -> torch.Tensor:
         live = (~s.broke & ~s.done & (s.it < max_iterations)
@@ -156,7 +157,7 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
         if picks == 1:
             # greedy pick over the inactive set (leftmost argmax)
             idx = torch.argmax(scores, dim=1).to(torch.int32)
-            u1, vtv = gram_slot_gather(G, idx, s.indices, n)
+            u1, vtv = insert_column(idx, s.indices)
             # the LS rhs grows by one gathered scalar of c₀
             at_kk = slots == s.kk[:, None]
             b_act1 = torch.where(live[:, None] & at_kk,
@@ -188,7 +189,7 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
                         & (it1 < max_iterations))
                 if it_cap is not None:
                     elig = elig & (it1 < it_cap)
-                u1, vtv = gram_slot_gather(G, idx, ind1, n)
+                u1, vtv = insert_column(idx, ind1)
                 at_kk = slots == kk1[:, None]
                 b_act_j = torch.where(elig[:, None] & at_kk,
                                       _take1(C0, idx)[:, None], b_act1)

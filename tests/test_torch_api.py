@@ -212,22 +212,10 @@ def test_ndview_matches_jax_ndview():
         ndview.as_matrix(np.ones((2, 2), np.complex64))
 
 
-# Each route's name kept from before the per-lane core came: the Homotopy
-# routes it brought run now (tests/test_torch_homotopy_api.py), so those
-# names hold the route that still raises, Omp's per-lane core or the
-# driver's gram-free route.
+# The routes that still raise: the host engine and multi-GPU solving.
 UNPORTED = {
-    "mode_exact": lambda A: pt.Omp(A, mode="exact", device="cpu"),
     "engine_native": lambda A: pt.Homotopy(A, engine="native", device="cpu"),
     "mesh": lambda A: pt.Homotopy(A, mesh=object(), device="cpu"),
-    "float64": lambda A: pt.Omp(A.astype(np.float64), device="cpu"),
-    "gram_free": lambda A: pt.Homotopy(A, gram=False, device="cpu")
-    .solve_batch(np.repeat(A[:, :2].T, 32, axis=0), TOL, 4),
-    "solve": lambda A: pt.Omp(A, device="cpu").solve(A[:, 0]),
-    "solve_on_device": lambda A: pt.Omp(A, device="cpu")
-    .solve_on_device(torch.from_numpy(A[:, 0]), TOL),
-    "sparse_matvec_regime": lambda A: pt.Omp(A, device="cpu")
-    .solve_batch(A[:, :2].T.copy(), TOL, 4),
 }
 
 

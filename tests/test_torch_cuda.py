@@ -18,9 +18,11 @@ lanes that are not gated bit-identical; K5 and K6 1e-5·max|ref| at
 "highest" and 1e-3·max|ref| at "default" (bf16 flips of the
 intermediate, as K1), repeat runs bit-identical, shapes that split the
 depth at each batch tile, and K6 on a residual that cancels most of its
-sum exactly equal to the twin (every value exact in f32). Drivers and
-the per-lane core on the card against the same code on the CPU twins at
-"high": iterations exact, X atol 1e-5 (float64: 1e-10).
+sum exactly equal to the twin (every value exact in f32). K1 and K2 also
+run at the gram-free drivers' shape (m=2048, n=65536, b=256). Drivers
+(with a Gram and gram-free) and the per-lane Homotopy and OMP cores on the
+card against the same code on the CPU twins at "high": iterations exact,
+X atol 1e-5 (float64: 1e-10).
 """
 
 import numpy as np
@@ -80,7 +82,8 @@ def _k1_case(dev, m, n, b, offset=0):
     (96, 256, 130, 0),     # the second batch tile holds 2 lanes
     (72, 200, 130, 0),
     (96, 256, 130, 1),     # bases off 16 bytes: element-wise staging
-    (40, 72, 9, 3)])
+    (40, 72, 9, 3),
+    (2048, 65536, 256, 0)])  # the gram-free drivers' q pass
 def test_k1_ring_tiles_match_twin(dev, m, n, b, offset):
     from sparse_solvers_tpu_torch.ops.cuda import kernels as K1
     A16, D = _k1_case(dev, m, n, b, offset)
@@ -113,7 +116,7 @@ def test_k2_kernel_matches_twin(dev, n):
 
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("b", [1, 3, 256])
-@pytest.mark.parametrize("n", [17, 4099, 8192])
+@pytest.mark.parametrize("n", [17, 4099, 8192, 65536])
 def test_k2_split_scan_matches_twin(dev, n, b, offset):
     """The split scan at its plan's chunks, with exact ties planted across
     every chunk boundary and a lane with no valid candidate; with `offset`
@@ -410,6 +413,74 @@ def test_core_on_card_matches_cpu_twins(dev, dtype, atol):
     assert it_g == it_c
     for a, b in zip(xs_g, xs_c):
         np.testing.assert_allclose(a, b, atol=atol)
+
+
+@pytest.mark.parametrize("family,picks", [("homotopy", 1), ("omp", 1),
+                                          ("omp", 4)])
+def test_gram_free_drivers_on_card_match_cpu_twins(dev, family, picks):
+    """gram=False past the small-batch regime: the gram-free driver on the
+    card against the CPU at "high" (iterations exact, X atol 1e-5), and
+    certified on the card through its kernels, every lane within the
+    tolerance."""
+    from sparse_solvers_tpu_torch import Homotopy, Omp
+    from sparse_solvers_tpu_torch.ops import dispatch
+    A, Y, Xt = compressive_problem(128, 512, 6, 16, seed=7)
+
+    def make(where, **kw):
+        if family == "homotopy":
+            return Homotopy(A, gram=False, device=where, **kw)
+        return Omp(A, gram=False, picks=picks, device=where, **kw)
+
+    out = {}
+    for where in (dev, "cpu"):
+        solver = make(where, precision="high")
+        assert solver.explain(batch=16, max_iterations=24)["gram_free"]
+        X, rep = solver.solve_batch(Y, 0.01, 24)
+        out[str(where)] = (X.cpu().numpy(), rep.iter.cpu().numpy())
+        assert solver._G_cache is None
+    (Xg, ig), (Xc, ic) = out[str(dev)], out["cpu"]
+    np.testing.assert_array_equal(ig, ic)
+    np.testing.assert_allclose(Xg, Xc, atol=1e-5)
+    dispatch.reset_launches()
+    X, rep = make(dev).solve_batch(Y, 0.01, 24)
+    want = (HOMOTOPY_KERNELS if family == "homotopy"
+            else ("normal_matvec_fused_bf16", "omp_insert"))
+    assert all(dispatch.launches[k] > 0 for k in want)
+    assert bool((rep.solution_error <= 0.01).all())
+
+
+def test_omp_core_on_card_matches_cpu_twins(dev):
+    """The per-lane OMP core: single solves (picks 1 and 4), a small-batch
+    regime batch, exact mode and float64 on the card against the CPU;
+    equal iterations, X within 1e-5 (float64 1e-10); no kernel
+    launches. Tolerances 1e-2 (float64 1e-6) keep tol² above the rss
+    identity's rounding floor, below which the last pick is set by
+    summation order (ROADMAP.md Queue 3)."""
+    from sparse_solvers_tpu_torch import Omp
+    from sparse_solvers_tpu_torch.ops import dispatch
+    A, Y, _ = compressive_problem(128, 256, 6, 4, seed=2)
+    runs = (
+        (lambda w: Omp(A, precision="high", device=w),
+         lambda s: s.solve(Y[0], 1e-2, 40), 1e-5),
+        (lambda w: Omp(A, precision="high", picks=4, device=w),
+         lambda s: s.solve(Y[1], 1e-2, 40), 1e-5),
+        (lambda w: Omp(A, precision="high", device=w),
+         lambda s: s.solve_batch(Y, 1e-2, 24), 1e-5),
+        (lambda w: Omp(A, mode="exact", device=w),
+         lambda s: s.solve(Y[2], 1e-2, 40), 1e-5),
+        (lambda w: Omp(A.astype(np.float64), device=w),
+         lambda s: s.solve(Y[3].astype(np.float64), 1e-6, 40), 1e-10))
+    for make, run, atol in runs:
+        out = {}
+        for where in (dev, "cpu"):
+            dispatch.reset_launches()
+            x, rep = run(make(where))
+            it = rep.iter if isinstance(rep.iter, int) else rep.iter.tolist()
+            out[str(where)] = (x.cpu().numpy(), it)
+            assert not any(dispatch.launches.values())
+        (xg, ig), (xc, ic) = out[str(dev)], out["cpu"]
+        assert ig == ic
+        np.testing.assert_allclose(xg, xc, atol=atol)
 
 
 def test_update_column_on_card_matches_rebuild(dev):

@@ -155,7 +155,7 @@ def test_gram_auto_size_follows_the_dtype(monkeypatch):
     assert not pt.Homotopy(A, mode="exact", device="cpu")._gram_enabled
 
 
-def test_gram_free_core_matches_gram_core():
+def test_gram_free_core_matches_gram_core(monkeypatch):
     A, Y, _ = _problem(m=96, n=128, k=4, batch=2, seed=13)
     X0, r0 = pt.Homotopy(A, gram=False, precision="high",
                          device="cpu").solve_batch(Y, TOL, 40)
@@ -163,9 +163,17 @@ def test_gram_free_core_matches_gram_core():
         Y, TOL, 40)
     assert torch.equal(r0.iter, r1.iter)
     np.testing.assert_allclose(X0.numpy(), X1.numpy(), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pt.Homotopy(A, gram=False, device="cpu").solve_batch(
-            np.repeat(Y, 8, axis=0), TOL, 40)
+    # past the sparse-matvec regime (16·41 ≥ 2m) the gram-free driver runs:
+    # the JAX gram-free driver's iterations, X within 1e-5
+    Y16 = np.repeat(Y, 8, axis=0)
+    Xf, rf = pt.Homotopy(A, gram=False, precision="high",
+                         device="cpu").solve_batch(Y16, TOL, 40)
+    monkeypatch.setenv("SS_BATCH_NATIVE", "1")
+    jax_solver = _jax(A, gram=False, precision="high")
+    assert jax_solver.explain(batch=16, max_iterations=40)["gram_free"]
+    Xj, rj = jax_solver.solve_batch(Y16, TOL, 40)
+    np.testing.assert_array_equal(rf.iter.numpy(), np.asarray(rj.iter))
+    np.testing.assert_allclose(Xf.numpy(), np.asarray(Xj), atol=1e-5)
 
 
 @pytest.mark.parametrize("kw", [{"gram": False}, {"mode": "exact"},

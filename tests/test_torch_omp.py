@@ -469,17 +469,8 @@ def test_solve_batch_argument_errors():
 
 
 UNPORTED = {
-    "solve": lambda A: pt.Omp(A, device="cpu").solve(A[:, 0]),
-    "solve_on_device": lambda A: pt.Omp(A, device="cpu")
-    .solve_on_device(torch.from_numpy(A[:, 0]), TOL),
-    "mode_exact": lambda A: pt.Omp(A, mode="exact", device="cpu"),
     "engine_native": lambda A: pt.Omp(A, engine="native", device="cpu"),
     "mesh": lambda A: pt.Omp(A, mesh=object(), device="cpu"),
-    "gram_true": lambda A: pt.Omp(A, gram=True, device="cpu"),
-    "gram_free": lambda A: pt.Omp(A, gram=False, device="cpu"),
-    "float64": lambda A: pt.Omp(A.astype(np.float64), device="cpu"),
-    "small_batch": lambda A: pt.Omp(A, device="cpu")
-    .solve_batch(A[:, :2].T.copy(), TOL, 4),
 }
 
 
@@ -487,12 +478,5 @@ UNPORTED = {
 def test_unported_routes_raise(route):
     A, _, _ = compressive_problem(64, 128, 4, 1)
     with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md Queue 1 item (4|5|6|10)$"):
+                       match=r"ROADMAP.md Queue 1 item (4|10)$"):
         UNPORTED[route](A)
-
-
-def test_gram_free_driver_call_raises():
-    A, Y, _ = compressive_problem(32, 64, 2, 4)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        POB.solve_omp_batch(torch.from_numpy(A), None, torch.from_numpy(Y),
-                            TOL, 8, 8)
