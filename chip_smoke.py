@@ -42,10 +42,30 @@ hand kernel, K1's share, total device ms and wall ms):
 
 and checks that every lane is certified, recovers its true support, and
 went through the kernels of its path (Homotopy K1, K2, K3; OMP K1, K4;
-the roofline path K5, K6; the cores none). Ends with small cross-device
-checks of the port on the card against the port on the CPU. Any failed
-check raises, so the script exits non-zero and never prints its last
-line. Needs one CUDA card; imports nothing of JAX.
+the roofline path K5, K6; the cores none), then small cross-device checks
+of the port on the card against the port on the CPU. Then the IRLS
+family, each phase one JSON line, with the launch counts read from 0 (the
+loops run none of K1 to K6, as the JAX loops reach no ``pallas_call``):
+
+  * ``Irls`` on ``benchmarks/bench_irls_batch.py``'s problem at 2048x1024
+    and 4096x2048, batch 256: fast mode with the triangular solve and
+    with the R⁻¹ product (``SS_IRLS_GEMM=1``), and exact mode at
+    2048x1024, each timed (median of 5 fenced batches after a warm-up)
+    with its iterations, spd failures, argmax recovery and peak device
+    memory; the gemm and trsm forms agree lane for lane, exact and fast
+    pick the same argmax, and 4 single solves match their batch lanes;
+  * the stabilized loop on the benchmark's competing pairs (no spd
+    failure, every leader found, a lane at the budget at the budget in
+    float64 too) and the reference recurrence (spd on every lane);
+  * the latency of one ``Irls.solve``;
+  * ``IrlsCg`` on ``benchmarks/bench_irls_cg.py``'s 512x4096 and
+    1024x65536 configurations: every planted support recovered, no
+    breakdown;
+  * one profiled batch of fast IRLS and of CG-IRLS at 1024x65536 (device
+    time, busy share, top device operations), and cross-device checks.
+
+Any failed check raises, so the script exits non-zero and never prints
+its last line. Needs one CUDA card; imports nothing of JAX.
 
 Output: phases on earlier lines, then one JSON line of per-kernel results
 (each with its bound: the larger of its bytes over 3.35 TB/s and its
@@ -92,6 +112,15 @@ HOMOTOPY_KERNELS = ("normal_matvec_fused_bf16", "find_max_gamma_fused",
 OMP_KERNELS = ("normal_matvec_fused_bf16", "omp_insert")
 FUSED_KERNELS = ("normal_matvec_fused", "residual_correlation_fused")
 HBM_BYTES_PER_S = 3.35e12
+# the IRLS workloads of benchmarks/bench_irls_batch.py:60-72 (batch, tol,
+# iterations; exact mode at the first shape only) and :105-125 (the
+# competing-pair signals, tol 0.3, 60 iterations), and bench_irls_cg.py:
+# 96-101 ((m, n, k, batch, outer iterations, CG steps), tol 1e-3)
+IRLS_SHAPES, IRLS_BATCH, IRLS_TOL, IRLS_MAX_ITER = ((2048, 1024),
+                                                    (4096, 2048)), 256, 1e-3, 50
+STAB_TOL, STAB_MAX_ITER = 0.3, 60
+CG_CONFIGS = ((512, 4096, 16, 64, 30, 96), (1024, 65536, 24, 32, 25, 96))
+CG_TOL = 1e-3
 
 
 def bound(flops: float, nbytes: float, peak_flops: float):
@@ -1157,6 +1186,307 @@ def cross_device(dev):
           f"one, solve_batch iterations equal, max |dX| {err:.3e}")
 
 
+def irls_json(**fields) -> None:
+    """One phase line of the IRLS and CG-IRLS phases, as JSON."""
+    phase(json.dumps(fields))
+
+
+def timed_batches(run, runs: int = 5):
+    """(median ms of ``runs`` calls of ``run()`` after one warm-up, each
+    fenced by ``torch.cuda.synchronize()``, the last call's output, and
+    the peak of allocated device memory over all of them in GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return float(np.median(times)) * 1e3, out, peak
+
+
+def irls_stats(X, rep):
+    """Host copies of an IRLS batch result: (X, iterations, spd flags)."""
+    return (X.cpu().numpy(), rep.iter.cpu().numpy(),
+            rep.spd_failure.cpu().numpy())
+
+
+def irls_batch_phase(dev, card):
+    """Phase 1: benchmarks/bench_irls_batch.py's problem (k=1 plus
+    uniform(0, 0.02) noise, seed 0 and 1) at 2048x1024 and 4096x2048,
+    batch 256, tol 1e-3, 50 iterations: fast mode with the triangular
+    solve, fast mode with the R⁻¹ product (SS_IRLS_GEMM=1) and, at
+    2048x1024, exact mode; then 4 lanes solved one by one. Returns the
+    first shape's (solver, A, Y) for the later phases."""
+    import os
+    from benchmarks._common import make_sparse_problem
+    from sparse_solvers_tpu_torch import Irls
+    first = None
+    for m, n in IRLS_SHAPES:
+        A, X0, Y = make_sparse_problem(m, n, 1, IRLS_BATCH, seed=0)
+        Y = Y + np.random.RandomState(1).uniform(
+            0, 0.02, Y.shape).astype(np.float32)
+        truth = X0.argmax(axis=1)
+        Yd = torch.from_numpy(Y).to(dev)
+        fast = Irls(A, device=dev)
+        out = {}
+        forms = [("fast_trsm", fast, "0"), ("fast_gemm_newton", fast, "1")]
+        if (m, n) == IRLS_SHAPES[0]:
+            forms.append(("exact", Irls(A, mode="exact", device=dev), "0"))
+        for name, solver, gemm in forms:
+            os.environ["SS_IRLS_GEMM"] = gemm
+            try:
+                plan = solver.explain(batch=IRLS_BATCH)
+                check(("newton" in plan) == (gemm == "1"),
+                      f"irls {name}: plan {plan}")
+                ms, (X, rep), peak = timed_batches(
+                    lambda: solver.solve_batch_on_device(
+                        Yd, IRLS_TOL, IRLS_MAX_ITER))
+            finally:
+                del os.environ["SS_IRLS_GEMM"]
+            Xh, it, spd = out[name] = irls_stats(X, rep)
+            check(np.isfinite(Xh).all(), f"irls {name} {m}x{n}: non-finite")
+            irls_json(phase="irls_batch", formulation=name, m=m, n=n,
+                      batch=IRLS_BATCH, tol=IRLS_TOL,
+                      max_iterations=IRLS_MAX_ITER, ms_per_batch=ms,
+                      solves_per_sec=IRLS_BATCH / ms * 1e3,
+                      mean_iters=float(it.mean()), max_iters=int(it.max()),
+                      spd_failures=int(spd.sum()),
+                      argmax_recovery=float(np.mean(Xh.argmax(axis=1)
+                                                    == truth)),
+                      peak_gib=peak, card=card)
+        (Xt, it_t, spd_t), (Xg, it_g, spd_g) = (out["fast_trsm"],
+                                                out["fast_gemm_newton"])
+        gap = float(np.abs(Xg - Xt).max())
+        check(np.array_equal(it_g, it_t) and np.array_equal(spd_g, spd_t)
+              and gap <= 1e-4, f"irls {m}x{n}: gemm vs trsm iterations "
+              f"equal {np.array_equal(it_g, it_t)}, spd equal "
+              f"{np.array_equal(spd_g, spd_t)}, max|dX| {gap}")
+        if "exact" in out:
+            ae, af = out["exact"][0].argmax(axis=1), Xt.argmax(axis=1)
+            check(np.array_equal(ae, af), f"irls {m}x{n}: exact and fast "
+                  f"argmax differ on {int((ae != af).sum())} lanes")
+        lanes = []
+        for lane in range(4):
+            x, r = fast.solve(Y[lane], IRLS_TOL, IRLS_MAX_ITER)
+            dx = float(np.abs(x.cpu().numpy() - Xt[lane]).max())
+            check(r.iter == it_t[lane] and r.spd_failure == spd_t[lane]
+                  and dx <= 1e-4, f"irls {m}x{n} lane {lane}: solve "
+                  f"{r} against batch iter {it_t[lane]} spd {spd_t[lane]}, "
+                  f"max|dx| {dx}")
+            lanes.append(dx)
+        irls_json(phase="irls_batch_checks", m=m, n=n,
+                  gemm_vs_trsm_max_abs_dx=gap, iterations_equal=True,
+                  exact_vs_fast_argmax_equal="exact" in out or None,
+                  single_vs_batch_max_abs_dx=max(lanes))
+        if first is None:
+            first = (fast, A, Y)
+        del out
+        torch.cuda.empty_cache()
+    return first
+
+
+def irls_stabilized_phase(dev, card, A):
+    """Phase 2: benchmarks/bench_irls_batch.py:105-125's competing pairs at
+    2048x1024 (seed 7, ρ in [0.9, 0.96], tol 0.3, 60 iterations): the
+    stabilized loop has no spd failure and finds every leader, and a lane
+    that reaches the budget reaches it in float64 too; the reference
+    recurrence spd-bails on every lane."""
+    from _torch_cases import bench_competing_pair
+    from sparse_solvers_tpu_torch import Irls
+    Y, leaders = bench_competing_pair(A, IRLS_BATCH)
+    Yd = torch.from_numpy(Y).to(dev)
+    for name, stab in (("stabilized_sustained", True),
+                       ("reference_recurrence_same_workload", False)):
+        solver = Irls(A, stabilized=stab, device=dev)
+        ms, (X, rep), peak = timed_batches(
+            lambda: solver.solve_batch_on_device(Yd, STAB_TOL,
+                                                 STAB_MAX_ITER))
+        Xh, it, spd = irls_stats(X, rep)
+        found = float(np.mean(Xh.argmax(axis=1) == leaders))
+        irls_json(phase="irls_stabilized", formulation=name,
+                  m=A.shape[0], n=A.shape[1], batch=IRLS_BATCH,
+                  tol=STAB_TOL, max_iterations=STAB_MAX_ITER,
+                  ms_per_batch=ms, solves_per_sec=IRLS_BATCH / ms * 1e3,
+                  mean_iters=float(it.mean()), min_iters=int(it.min()),
+                  max_iters=int(it.max()),
+                  converged_lanes=int(((it < STAB_MAX_ITER) & ~spd).sum()),
+                  spd_failures=int(spd.sum()), leader_recovery=found,
+                  peak_gib=peak, card=card)
+        if stab:
+            check(not spd.any() and found == 1.0, f"stabilized: spd "
+                  f"{int(spd.sum())}, leaders found {found}")
+            stalled = np.flatnonzero(it >= STAB_MAX_ITER)
+            if stalled.size:
+                # a lane whose runner-up hovers at tol·max never meets the
+                # do-while's rule: the JAX package and the float64 oracle
+                # stall on such lanes too (ROADMAP.md Queue 3). Such a lane
+                # must stall in float64 as well, or float32 is at fault.
+                s64 = Irls(A.astype(np.float64), stabilized=True,
+                           device=dev)
+                _, r64 = s64.solve_batch(Y[stalled].astype(np.float64),
+                                         STAB_TOL, STAB_MAX_ITER)
+                it64 = r64.iter.cpu().numpy()
+                irls_json(phase="irls_stabilized_budget_lanes",
+                          lanes=stalled.tolist(),
+                          float64_iterations=it64.tolist())
+                check(bool((it64 >= STAB_MAX_ITER).all()),
+                      f"stabilized: lanes {stalled.tolist()} reach the "
+                      f"budget in float32 but stop at {it64.tolist()} in "
+                      "float64")
+        else:
+            check(spd.all(), f"reference recurrence: {int((~spd).sum())} "
+                  "lanes did not spd-bail")
+
+
+def irls_latency_phase(card, solver, Y):
+    """Phase 3: one fast-mode Irls.solve at 2048x1024, median of 10 fenced
+    runs after a warm-up."""
+    solver.solve(Y[0], IRLS_TOL, IRLS_MAX_ITER)
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, rep = solver.solve(Y[0], IRLS_TOL, IRLS_MAX_ITER)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    irls_json(phase="irls_latency", m=solver.shape[0], n=solver.shape[1],
+              ms_per_solve=float(np.median(times)) * 1e3,
+              iterations=rep.iter, spd_failure=rep.spd_failure, card=card)
+
+
+def irls_cg_phase(dev, card):
+    """Phase 4: benchmarks/bench_irls_cg.py's two configurations (signed
+    amplitudes in [0.5, 1.5), K = 2k, tol 1e-3): every lane's top-k
+    support is the planted one and no lane breaks down. Returns the last
+    configuration's (solver, Y on the card, max_outer) for the profile."""
+    from benchmarks._common import make_sparse_problem
+    from sparse_solvers_tpu_torch import IrlsCg
+    last = None
+    for m, n, k, batch, max_outer, cg_max in CG_CONFIGS:
+        A, X0, Y = make_sparse_problem(m, n, k, batch, signed=True,
+                                       amp=(0.5, 1.5))
+        solver = IrlsCg(A, k_sparsity=2 * k, cg_max_iterations=cg_max,
+                        device=dev)
+        Yd = torch.from_numpy(Y).to(dev)
+        ms, (X, rep), peak = timed_batches(
+            lambda: solver.solve_batch_on_device(Yd, CG_TOL, max_outer))
+        Xh, it, broke = irls_stats(X, rep)
+        top = np.argsort(-np.abs(Xh), axis=1)[:, :k]
+        hits = [set(top[b].tolist()) == set(np.flatnonzero(X0[b]).tolist())
+                for b in range(batch)]
+        irls_json(phase="irls_cg", m=m, n=n, k=k, batch=batch, tol=CG_TOL,
+                  max_outer=max_outer, cg_max=cg_max, ms_per_batch=ms,
+                  solves_per_sec=batch / ms * 1e3,
+                  mean_outer_iterations=float(it.mean()),
+                  max_outer_iterations=int(it.max()),
+                  support_recovery_rate=float(np.mean(hits)),
+                  max_abs_err=float(np.abs(Xh - X0).max()),
+                  breakdowns=int(broke.sum()), a_bytes=int(A.nbytes),
+                  peak_gib=peak, card=card)
+        check(all(hits) and not broke.any(), f"irls_cg {m}x{n}: supports "
+              f"missed on {batch - sum(hits)} lanes, breakdowns "
+              f"{int(broke.sum())}")
+        last = (solver, Yd, max_outer)
+    return last
+
+
+def irls_profile(name, run, card):
+    """Phase 5: one call of ``run`` under ``utils/profiling.trace``: total
+    device time, its share of the profiled wall time, and the top device
+    operations by name."""
+    from sparse_solvers_tpu_torch.utils import profiling
+    torch.cuda.synchronize()
+    with profiling.trace() as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops = [(e.self_device_time_total / 1e3, e.count, e.key)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(ms for ms, _, _ in ops)
+    check(total > 0, f"{name} profile: the profiler saw no device time")
+    top = sorted(ops, reverse=True)[:6]
+    irls_json(phase="irls_profile", path=name, device_ms=total,
+              profiled_wall_ms=wall, busy_share=total / wall,
+              top_device_ops=[{"name": key[:90], "ms": ms, "calls": count}
+                              for ms, count, key in top], card=card)
+
+
+def irls_cross_device(dev):
+    """Phase 6: a small Irls (fast, gemm and exact) and IrlsCg problem
+    solved on the CPU and on the card from the same factorization:
+    iterations and flags equal, X within 1e-4 (IrlsCg 1e-5)."""
+    import os
+    from _torch_cases import cs_problem, irls_problem
+    from sparse_solvers_tpu_torch import Irls, IrlsCg
+    A, Y = irls_problem(60, 30, 8, 3, seed=13, dtype=np.float32)
+    Q, R = np.linalg.qr(A)
+    Acg, _, _ = cs_problem(64, 256, 5, seed=0, dtype=np.float32)
+    Ycg = np.stack([Acg @ cs_problem(64, 256, k, seed=s,
+                                     dtype=np.float32)[1]
+                    for s, k in ((0, 5), (4, 3), (9, 8))])
+    cases = (("irls fast", lambda w: Irls.from_numpy(A, Q=Q, R=R, device=w),
+              Y, 0.01, 50, 1e-4, "0"),
+             ("irls gemm", lambda w: Irls.from_numpy(A, Q=Q, R=R, device=w),
+              Y, 0.01, 50, 1e-4, "1"),
+             ("irls exact", lambda w: Irls.from_numpy(A, Q=Q, R=R,
+                                                      mode="exact",
+                                                      device=w),
+              Y, 0.01, 50, 1e-4, "0"),
+             ("irls_cg", lambda w: IrlsCg(Acg, device=w), Ycg, 1e-5, 80,
+              1e-5, "0"))
+    for name, make, Yc, tol, max_it, atol, gemm in cases:
+        os.environ["SS_IRLS_GEMM"] = gemm
+        try:
+            out = {}
+            for where in (dev, "cpu"):
+                X, rep = make(where).solve_batch(Yc, tol, max_it)
+                out[str(where)] = irls_stats(X, rep)
+        finally:
+            del os.environ["SS_IRLS_GEMM"]
+        (Xg, ig, sg), (Xc, ic, sc) = out[str(dev)], out["cpu"]
+        err = float(np.abs(Xg - Xc).max())
+        check(np.array_equal(ig, ic) and np.array_equal(sg, sc)
+              and err <= atol, f"cross-device {name}: iterations {ig} vs "
+              f"{ic}, flags {sg} vs {sc}, max|dX| {err}")
+        phase(f"cross-device {name}: iterations equal {ig.tolist()}, flags "
+              f"equal, max |X_gpu - X_cpu| {err:.3e} <= {atol:g}")
+
+
+def irls_paths(dev, card):
+    """The IRLS and CG-IRLS phases, with the launch counts read from 0:
+    their loops run no kernel of K1 to K6, as the JAX loops reach no
+    pallas_call."""
+    from sparse_solvers_tpu_torch.ops import dispatch
+    t0 = time.perf_counter()
+    dispatch.reset_launches()
+    solver, A, Y = irls_batch_phase(dev, card)
+    irls_stabilized_phase(dev, card, A)
+    irls_latency_phase(card, solver, Y)
+    cg_solver, cg_Y, cg_outer = irls_cg_phase(dev, card)
+    Yd = torch.from_numpy(Y).to(dev)
+    irls_profile(f"irls fast_trsm {A.shape[0]}x{A.shape[1]}",
+                 lambda: solver.solve_batch_on_device(Yd, IRLS_TOL,
+                                                      IRLS_MAX_ITER), card)
+    m, n = cg_solver.shape
+    irls_profile(f"irls_cg {m}x{n}",
+                 lambda: cg_solver.solve_batch_on_device(cg_Y, CG_TOL,
+                                                         cg_outer), card)
+    irls_cross_device(dev)
+    torch.cuda.synchronize()
+    check(not any(dispatch.launches.values()),
+          f"the IRLS paths launched {dispatch.launches}")
+    phase(f"IRLS and CG-IRLS paths: launches {dict(dispatch.launches)} (none "
+          f"of K1 to K6, as the JAX loops reach no pallas_call); phases "
+          f"took {time.perf_counter() - t0:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1226,6 +1556,7 @@ def main() -> int:
     torch.cuda.synchronize()
     cross_device(dev)
     torch.cuda.synchronize()
+    irls_paths(dev, card)
 
     kernels = []
     for name, res in results.items():

@@ -14,16 +14,20 @@ device — ``solve``, ``solve_batch`` (the slot-space drivers, with a Gram or
 gram-free, or the per-lane cores in the small-batch regimes),
 ``solve_path``, ``solve_path_batch``, the ``*_on_device`` entries,
 ``update_column``, both modes, float32 and float64, at every precision
-including ``"certified"``; the module functions below; the K5 and K6 fused
+including ``"certified"``; ``Irls`` (a QR computed once; fast mode with
+the triangular-solve or R⁻¹-gemm Newton step, exact mode, stabilized)
+and the factorization-free ``IrlsCg``, with ``IrlsReport``, on one
+device; the module functions below and ``version``; the K5 and K6 fused
 correlation kernels (``ops/cuda/kernels.py``) with the roofline module
 (``utils/profiling.py``). Everything else raises ``NotImplementedError``
 naming its ROADMAP.md item.
 """
 
-from .api import (Homotopy, Omp, densify_batch, densify_path, lasso_at,
-                  lasso_at_batch, norm_l1, reconstruct_signal)
-from .reports import HomotopyReport, OmpReport
+from .api import (Homotopy, Irls, IrlsCg, Omp, densify_batch, densify_path,
+                  lasso_at, lasso_at_batch, norm_l1, reconstruct_signal)
+from .reports import HomotopyReport, IrlsReport, OmpReport
+from .utils.config import version
 
-__all__ = ["Homotopy", "HomotopyReport", "Omp", "OmpReport",
-           "densify_batch", "densify_path", "lasso_at", "lasso_at_batch",
-           "norm_l1", "reconstruct_signal"]
+__all__ = ["Homotopy", "HomotopyReport", "Irls", "IrlsCg", "IrlsReport",
+           "Omp", "OmpReport", "densify_batch", "densify_path", "lasso_at",
+           "lasso_at_batch", "norm_l1", "reconstruct_signal", "version"]

@@ -1,20 +1,22 @@
 """Public solver API — the port of ``sparse_solvers_tpu/api.py``'s
-``Homotopy`` and ``Omp`` façades.
+``Homotopy``, ``Omp``, ``Irls`` and ``IrlsCg`` façades.
 
-Ported: ``Homotopy`` and ``Omp`` whole on one device except the host
-engine and ``mesh=`` (every ``solve*`` route, both modes, float32 and
-float64, with a Gram, without one and gram-free in the batch drivers, and
-``picks`` for gOMP), ``update_column``, and the module functions
-``densify_batch``, ``densify_path``, ``lasso_at``, ``lasso_at_batch``,
-``reconstruct_signal`` and ``norm_l1``. Every other route raises
-``NotImplementedError`` naming its ROADMAP.md item; the port adds no
-feature the JAX package lacks.
+Ported: the four façades whole on one device except the host engine and
+``mesh=``: for ``Homotopy`` and ``Omp`` every ``solve*`` route, both
+modes, float32 and float64, with a Gram, without one and gram-free in the
+batch drivers, and ``picks`` for gOMP, and ``update_column``; for ``Irls``
+the fast (triangular-solve or R⁻¹-gemm Newton), exact and stabilized
+loops over a QR computed once; for ``IrlsCg`` the factorization-free
+loop and ``update_column``. Also the module functions ``densify_batch``,
+``densify_path``, ``lasso_at``, ``lasso_at_batch``, ``reconstruct_signal``
+and ``norm_l1``. Every other route raises ``NotImplementedError`` naming
+its ROADMAP.md item; the port adds no feature the JAX package lacks.
 
 PyTorch semantics against the JAX façade:
-  * ``Homotopy(A, ..., device="cuda")`` and ``Omp(A, ..., device="cuda")``
-    place A, and lazily AᵀA, on that device; the default is "cuda", so a
-    missing GPU is an error, never a silent CPU run. On a CPU device every
-    kernel runs its plain twin.
+  * every façade takes ``device="cuda"`` and places A, and lazily AᵀA or
+    Irls's QR, on that device; the default is "cuda", so a missing GPU is
+    an error, never a silent CPU run. On a CPU device every kernel runs
+    its plain twin.
   * ``engine="auto"`` runs the torch routes: the slot-space driver or the
     per-lane core. The JAX package's auto-routing of tiny problems to the
     C++ host engine is ROADMAP.md Queue 1 item 4's open part.
@@ -26,16 +28,21 @@ PyTorch semantics against the JAX façade:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from . import convert as _convert
 from .linalg import norms as _norms
 from .ops import blas as _blas
 from .ops import dispatch as _dispatch
 from .ops.operators import DenseOperator
-from .reports import HomotopyReport, OmpReport
+from .reports import HomotopyReport, IrlsReport, OmpReport
 from .solvers import homotopy as _homotopy
 from .solvers import homotopy_batch as _homotopy_batch
+from .solvers import irls as _irls
+from .solvers import irls_cg as _irls_cg
 from .solvers import omp as _omp
 from .solvers import omp_batch as _omp_batch
 from .utils import ndview
@@ -134,36 +141,12 @@ def _numpy(a) -> np.ndarray:
     return np.asarray(a)
 
 
-def _update_column_impl(solver, j: int, col) -> None:
-    """Replace column j of A with ``col`` and rewrite the cached Gram's row
-    and column incrementally — one Aᵀ·v product instead of the O(mn²)
-    rebuild (api.py:215-252). A and G are replaced by updated copies, not
-    written in place: A may be the caller's own tensor."""
-    if not (0 <= j < solver._n):
-        raise ValueError(f"column index {j} out of range [0, {solver._n})")
-    v = ndview.as_vector(col, dtype=solver.dtype, size=solver._m,
-                         device=solver._device)
-    A = solver._A.clone()
-    A[:, j] = v
-    solver._A = A
-    solver._AT_cache.clear()
-    if solver._G_cache is not None:
-        # the new Gram row/col g = Aᵀ_new v, at the precision the lazy
-        # Gram was built at (the updated column lands vᵀv on the diagonal)
-        with _blas.precision_scope("highest"):
-            g = _blas.xgemv(A, v, trans=True)
-        G = solver._G_cache.clone()
-        G[:, j] = g
-        G[j, :] = g
-        solver._G_cache = G
-
-
-class _GramSolver:
-    """What the façades share: A on the solver's device and its lazy
-    Gram (the JAX package's ``_lazy_gram``)."""
+class _Solver:
+    """What every façade shares: A on the solver's device."""
 
     def _load(self, A, device) -> None:
-        """Place A on ``device``."""
+        """Place A on ``device``; a CUDA device without a card is an
+        error, never a silent CPU run."""
         self._device = torch.device(device)
         if self._device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -171,6 +154,40 @@ class _GramSolver:
                 "device='cpu' to run the plain PyTorch twins")
         self._A = ndview.as_matrix(A, device=self._device)
         self._m, self._n = self._A.shape
+
+    def _replace_column(self, j: int, col) -> None:
+        """Replace column j of A on the solver's device with ``col``. A is
+        replaced by an updated copy, not written in place: it may be the
+        caller's own tensor."""
+        if not (0 <= j < self._n):
+            raise ValueError(
+                f"column index {j} out of range [0, {self._n})")
+        v = ndview.as_vector(col, dtype=self.dtype, size=self._m,
+                             device=self._device)
+        A = self._A.clone()
+        A[:, j] = v
+        self._A = A
+
+    @property
+    def shape(self):
+        return (self._m, self._n)
+
+    @property
+    def dtype(self):
+        return self._A.dtype
+
+    def _tol(self, tolerance) -> float:
+        return (_default_tolerance(self.dtype)
+                if tolerance is None else float(tolerance))
+
+
+class _GramSolver(_Solver):
+    """What the Homotopy and OMP façades share besides A: its lazy Gram
+    (the JAX package's ``_lazy_gram``) and the gram-free drivers'
+    transposed copies."""
+
+    def _load(self, A, device) -> None:
+        super()._load(A, device)
         self._G_cache = None
         self._AT_cache: dict[bool, torch.Tensor] = {}
 
@@ -215,23 +232,22 @@ class _GramSolver:
 
     def update_column(self, j: int, col) -> None:
         """Replace column j of the sensing matrix on the solver's device
-        (gallery churn): the cached Gram's row and column are rewritten
-        from one Aᵀ·col product instead of the O(mn²) rebuild. No
-        reference analog: its solver holds a const view of A
-        (policies.h:42)."""
-        _update_column_impl(self, j, col)
-
-    @property
-    def shape(self):
-        return (self._m, self._n)
-
-    @property
-    def dtype(self):
-        return self._A.dtype
-
-    def _tol(self, tolerance) -> float:
-        return (_default_tolerance(self.dtype)
-                if tolerance is None else float(tolerance))
+        (gallery churn) and rewrite the cached Gram's row and column from
+        one Aᵀ·col product instead of the O(mn²) rebuild (api.py:215-252);
+        the transposed copies are dropped. No reference analog: its solver
+        holds a const view of A (policies.h:42)."""
+        self._replace_column(j, col)
+        self._AT_cache.clear()
+        if self._G_cache is not None:
+            # the new Gram row/col g = Aᵀ_new v, at the precision the lazy
+            # Gram was built at (the updated column lands vᵀv on the
+            # diagonal)
+            with _blas.precision_scope("highest"):
+                g = _blas.xgemv(self._A, self._A[:, j], trans=True)
+            G = self._G_cache.clone()
+            G[:, j] = g
+            G[j, :] = g
+            self._G_cache = G
 
 
 class Homotopy(_GramSolver):
@@ -785,6 +801,290 @@ class Omp(_GramSolver):
         report), or ((values, indices), report) when ``dense=False``."""
         return self._fn(max_iterations, batch=Y.shape[0], dense=dense)(
             self._A, self._G, Y, tolerance)
+
+
+class Irls(_Solver):
+    """IRLS solver over a fixed sensing matrix A (m×n, m ≥ n), the port of
+    ``sparse_solvers_tpu.Irls`` on one device.
+
+    The economy QR of A (``torch.linalg.qr``, TF32 off) is computed once,
+    on first use, and reused across every solve (the reference computes it
+    in the solver constructor, src/lib.cpp:51-57). ``mode`` "fast" takes
+    the collapsed Newton step, "exact" the reference's gemm + Cholesky
+    step; ``precision`` ("highest" default, "high", "default"; IRLS has no
+    certified variant: its solution_error is the reweighting eps, not a
+    residual) sets the products' precision, and triangular solves always
+    run at full precision. ``stabilized=True`` normalizes each Newton
+    iterate by its maximum (the JAX package's beyond-reference variant).
+    With ``SS_IRLS_GEMM=1`` a batched fast solve applies the cached R⁻¹ by
+    one product per iteration instead of a triangular solve. ``device``
+    (default "cuda") is where A, Q, R and every solve live; ``engine``
+    "auto" and "jax" both run the torch route.
+    """
+
+    def __init__(self, A, engine: str = "auto", mode: str = "fast",
+                 precision: str = "highest", stabilized: bool = False,
+                 mesh=None, device="cuda"):
+        if engine not in ("auto", "jax", "native"):
+            raise ValueError(
+                f"engine must be 'auto', 'jax' or 'native', got {engine!r}")
+        if mode not in ("fast", "exact"):
+            raise ValueError(f"mode must be 'fast' or 'exact', got {mode!r}")
+        if precision not in ("highest", "high", "default"):
+            raise ValueError(
+                "precision must be 'highest', 'high' or 'default' "
+                f"(IRLS has no certified variant), got {precision!r}")
+        if stabilized and engine == "native":
+            raise ValueError(
+                "stabilized IRLS runs on the jax engine (the native host "
+                "backend implements the reference recurrence)")
+        if engine == "native":
+            raise _unported("engine='native' (the C++ host engine)", 4)
+        if mesh is not None:
+            raise _unported("mesh= (multi-GPU solving)", 10)
+        self._load(A, device)
+        if self._m < self._n:
+            raise ValueError(
+                "Irls requires m >= n (underdetermined systems not "
+                f"supported); got {self._m}x{self._n}"
+            )
+        self._precision = precision
+        self._mode = mode
+        self._stabilized = bool(stabilized)
+        self._QR_cache = None
+        self._Rinv_cache = None
+
+    @classmethod
+    def from_numpy(cls, A, Q=None, R=None, r_inv=None, **kwargs):
+        """Build a solver whose factorization is the given Q (m, n), R
+        (n, n) and, optionally, R⁻¹ instead of ones computed here — tests
+        feed the JAX package's so that both packages step from identical
+        factors (QR sign conventions differ between XLA and LAPACK or
+        cuSOLVER; ``convert.irls_factor_from_numpy``)."""
+        if (Q is None) != (R is None):
+            raise ValueError("Q and R are given together or not at all")
+        solver = cls(A, **kwargs)
+        if Q is not None:
+            Q = np.asarray(Q, dtype=np.float64 if solver.dtype
+                           == torch.float64 else np.float32)
+            Qt, Rt, Rinv = _convert.irls_factor_from_numpy(
+                Q, R, solver._device, r_inv)
+            solver._QR_cache = (Qt, Rt)
+            solver._Rinv_cache = Rinv
+        return solver
+
+    def _qr(self):
+        """(Q, R), the economy QR of A, computed once at full precision.
+        The iteration is invariant to the factorization's column signs in
+        exact arithmetic only."""
+        if self._QR_cache is None:
+            with _blas.precision_scope("highest"):
+                self._QR_cache = tuple(torch.linalg.qr(self._A,
+                                                       mode="reduced"))
+        return self._QR_cache
+
+    @property
+    def _Rinv(self) -> torch.Tensor:
+        """R⁻¹ for the gemm Newton step (SS_IRLS_GEMM=1), from one
+        triangular solve against I, cached."""
+        if self._Rinv_cache is None:
+            R = self._qr()[1]
+            self._Rinv_cache = _blas.xtrsm(
+                R, torch.eye(self._n, dtype=R.dtype, device=R.device),
+                lower=False)
+        return self._Rinv_cache
+
+    def _newton_gemm(self, batched: bool) -> bool:
+        """Whether a batched fast solve applies the cached R⁻¹ by product
+        (SS_IRLS_GEMM=1, read at each solve as the JAX package reads it)."""
+        if not batched or self._mode != "fast":
+            return False
+        return os.environ.get("SS_IRLS_GEMM") == "1"
+
+    def explain(self, batch: int | None = None,
+                max_iterations: int = 100) -> dict:
+        """Execution plan for a solve of this configuration (the JAX
+        façade's keys). No side effects."""
+        plan = {"engine": "torch", "backend": self._device.type,
+                "device": str(self._device), "mode": self._mode,
+                "precision": self._precision,
+                "formulation": ("batched IRLS iteration (the vmapped "
+                                "loop's lanes)" if batch is not None
+                                else "IRLS iteration"),
+                "qr_cached": self._QR_cache is not None,
+                # plain products, QR, Cholesky and triangular solves, as
+                # the JAX loop runs no Pallas kernel
+                "kernels": {}}
+        if self._newton_gemm(batched=batch is not None):
+            plan["newton"] = "gemm(R^-1), cached inverse"
+        if self._stabilized:
+            plan["stabilized"] = True
+        return plan
+
+    def _run(self, Y: torch.Tensor, tolerance, max_iterations: int,
+             batched: bool):
+        """The IRLS loop over the lanes of Y (b, m) at the instance's
+        precision; returns (X (b, n), IrlsReportArrays)."""
+        _check_max_iterations(max_iterations)
+        Q, R = self._qr()
+        r_inv = self._Rinv if self._newton_gemm(batched) else None
+        with _blas.precision_scope(self._precision):
+            return _irls.solve_irls(Q, R, Y, tolerance, max_iterations,
+                                    mode=self._mode, r_inv=r_inv,
+                                    stabilized=self._stabilized)
+
+    def solve(self, b, tolerance: float | None = None,
+              max_iterations: int = 100):
+        """Solve min‖x‖₁ s.t. Ax = b; returns (x, IrlsReport) with x an
+        (n,) tensor on the solver's device."""
+        y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
+                             device=self._device)
+        x, rep = _first_lane(self._run(y[None], self._tol(tolerance),
+                                       max_iterations, batched=False))
+        return x, IrlsReport(iter=int(rep.iter),
+                             solution_error=float(rep.solution_error),
+                             spd_failure=bool(rep.spd_failure))
+
+    def solve_batch(self, B, tolerance: float | None = None,
+                    max_iterations: int = 100):
+        """Batched solve over signals B of shape (batch, m); returns (X
+        (batch, n), IrlsReportArrays of per-lane tensors) on the solver's
+        device. An empty batch returns (0, n) and (0,) tensors."""
+        Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
+                                   device=self._device)
+        return self._run(Y, self._tol(tolerance), max_iterations,
+                         batched=True)
+
+    def solve_on_device(self, y: torch.Tensor, tolerance,
+                        max_iterations: int = 100):
+        """Solve for an (m,) tensor already on the solver's device; returns
+        (x, IrlsReportArrays of 0-d tensors)."""
+        return _first_lane(self._run(y[None], tolerance, max_iterations,
+                                     batched=False))
+
+    def solve_batch_on_device(self, Y: torch.Tensor, tolerance,
+                              max_iterations: int = 100):
+        """Batched solve over a (batch, m) tensor already on the solver's
+        device; returns (X, IrlsReportArrays)."""
+        return self._run(Y, tolerance, max_iterations, batched=True)
+
+
+class IrlsCg(_Solver):
+    """CG-accelerated IRLS for the underdetermined regime (m ≤ n), the port
+    of ``sparse_solvers_tpu.IrlsCg`` on one device: the DDFG basis-pursuit
+    IRLS with a conjugate-gradient inner solve (arXiv:1509.04063),
+    factorization-free — each solve touches A only through products.
+
+    Parameters follow the JAX façade: ``p`` in (0, 1] (1.0, the default,
+    is convex ℓ₁), ``k_sparsity`` the K of the ε-rule (default m // 4),
+    ``cg_max_iterations`` (default min(m, 128)) and ``cg_tolerance``
+    (default tolerance/10 within [10·eps, √eps]), ``precision`` of the
+    products. ``device`` (default "cuda") is where A and every solve live;
+    ``engine`` "auto" and "jax" both run the torch route. Reports carry the
+    reference IRLS fields: solution_error = final ε, spd_failure = an
+    inner-CG curvature breakdown.
+    """
+
+    def __init__(self, A, p: float = 1.0, k_sparsity: int | None = None,
+                 cg_max_iterations: int | None = None,
+                 cg_tolerance: float | None = None,
+                 precision: str = "highest", engine: str = "auto",
+                 mesh=None, device="cuda"):
+        if precision not in ("highest", "high", "default"):
+            raise ValueError(
+                "precision must be 'highest', 'high' or 'default', "
+                f"got {precision!r}")
+        if engine not in ("auto", "jax", "native"):
+            raise ValueError(
+                f"engine must be 'auto', 'jax' or 'native', got {engine!r}")
+        if not (0 < p <= 1.0):
+            raise ValueError(f"p must be in (0, 1], got {p}")
+        if k_sparsity is not None and k_sparsity < 1:
+            raise ValueError(f"k_sparsity must be >= 1, got {k_sparsity}")
+        if cg_max_iterations is not None and cg_max_iterations < 1:
+            raise ValueError(
+                f"cg_max_iterations must be >= 1, got {cg_max_iterations}")
+        if cg_tolerance is not None and not cg_tolerance > 0:
+            raise ValueError(
+                f"cg_tolerance must be > 0, got {cg_tolerance}")
+        if engine == "native":
+            raise _unported("engine='native' (the C++ host engine)", 4)
+        if mesh is not None:
+            raise _unported("mesh= (multi-GPU solving)", 10)
+        self._load(A, device)
+        if self._m > self._n:
+            raise ValueError(
+                "IrlsCg serves the underdetermined regime (m <= n); for "
+                f"m > n use Irls (got {self._m}x{self._n})")
+        self._p = p
+        self._k = k_sparsity
+        self._cg_max = cg_max_iterations
+        self._cg_tol = cg_tolerance
+        self._precision = precision
+
+    def update_column(self, j: int, col) -> None:
+        """Replace column j of the sensing matrix on the solver's device
+        (gallery churn, api.py:1246-1259). CG-IRLS is factorization-free,
+        so nothing else needs updating."""
+        self._replace_column(j, col)
+
+    def explain(self, batch: int | None = None,
+                max_iterations: int = 100) -> dict:
+        """Execution plan for a solve of this configuration (the JAX
+        façade's keys). No side effects."""
+        return {"engine": "torch", "backend": self._device.type,
+                "device": str(self._device), "mode": "cg",
+                "precision": self._precision, "p": self._p,
+                "formulation": ("batched CG-IRLS iteration (the vmapped "
+                                "loop's lanes)" if batch is not None
+                                else "CG-IRLS iteration"),
+                "factorization_free": True,
+                # plain products, as the JAX loop runs no Pallas kernel
+                "kernels": {}}
+
+    def _run(self, Y: torch.Tensor, tolerance, max_iterations: int):
+        """The CG-IRLS loop over the lanes of Y (b, m) at the instance's
+        precision; returns (X (b, n), IrlsReportArrays)."""
+        _check_max_iterations(max_iterations)
+        with _blas.precision_scope(self._precision):
+            return _irls_cg.solve_irls_cg(
+                self._A, Y, tolerance, max_iterations, p=self._p,
+                k_sparsity=self._k, cg_max_iterations=self._cg_max,
+                cg_tolerance=self._cg_tol)
+
+    def solve(self, b, tolerance: float | None = None,
+              max_iterations: int = 100):
+        """Solve min‖x‖₁ s.t. Ax = b; returns (x, IrlsReport) with x an
+        (n,) tensor on the solver's device."""
+        y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
+                             device=self._device)
+        x, rep = _first_lane(self._run(y[None], self._tol(tolerance),
+                                       max_iterations))
+        return x, IrlsReport(iter=int(rep.iter),
+                             solution_error=float(rep.solution_error),
+                             spd_failure=bool(rep.spd_failure))
+
+    def solve_batch(self, B, tolerance: float | None = None,
+                    max_iterations: int = 100):
+        """Batched solve over signals B of shape (batch, m); returns (X
+        (batch, n), IrlsReportArrays of per-lane tensors) on the solver's
+        device. An empty batch returns (0, n) and (0,) tensors."""
+        Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
+                                   device=self._device)
+        return self._run(Y, self._tol(tolerance), max_iterations)
+
+    def solve_on_device(self, y: torch.Tensor, tolerance,
+                        max_iterations: int = 100):
+        """Solve for an (m,) tensor already on the solver's device; returns
+        (x, IrlsReportArrays of 0-d tensors)."""
+        return _first_lane(self._run(y[None], tolerance, max_iterations))
+
+    def solve_batch_on_device(self, Y: torch.Tensor, tolerance,
+                              max_iterations: int = 100):
+        """Batched solve over a (batch, m) tensor already on the solver's
+        device; returns (X, IrlsReportArrays)."""
+        return self._run(Y, tolerance, max_iterations)
+
 
 def densify_batch(values, indices, n: int) -> torch.Tensor:
     """Scatter a compact slot-space batch solution (``solve_batch(...,

@@ -4,7 +4,8 @@ The JAX package's batch-driver state (``sparse_solvers_tpu.solvers.
 homotopy_batch._BState``) and its online-inverse state (``sparse_solvers_
 tpu.linalg.online_inverse.InverseState``), handed over as numpy arrays,
 become the port's on a device, and back — so a test can step both packages
-from identical state. The representational differences: the iteration
+from identical state. ``irls_factor_from_numpy`` carries the IRLS
+factorization (Q, R and R⁻¹) across the same way. The representational differences: the iteration
 count is uint32 in JAX and int32 here, and the port's inverse state
 always carries a leading lane axis.
 """
@@ -65,3 +66,19 @@ def inverse_state_to_numpy(state: InverseState) -> dict:
     first."""
     return {f: v.detach().cpu().numpy()
             for f, v in state._asdict().items()}
+
+
+def irls_factor_from_numpy(Q, R, device, r_inv=None):
+    """The JAX package's IRLS factorization as the port's tensors on
+    ``device``: (Q (m, n), R (n, n), R⁻¹ or None), in Q's dtype. QR sign
+    conventions differ between XLA and LAPACK or cuSOLVER, and the
+    iteration is invariant to them only in exact arithmetic, so a test
+    that steps both packages hands JAX's own factors over."""
+    Q = np.asarray(Q)
+    if Q.dtype not in (np.float32, np.float64):
+        raise ValueError(f"Q must be float32 or float64, got {Q.dtype}")
+
+    def put(a):
+        return torch.from_numpy(np.array(a, dtype=Q.dtype)).to(device)
+
+    return put(Q), put(R), None if r_inv is None else put(r_inv)

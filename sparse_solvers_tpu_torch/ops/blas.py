@@ -22,6 +22,11 @@ extent and restores the caller's setting afterwards. The scope stack is
 thread-local like the JAX package's; the TF32 flag itself is
 process-global in PyTorch, so two threads solving at different precisions
 at once would race on it.
+
+Triangular solves have no precision level, in XLA as here: ``xtrsv`` and
+``xtrsm`` pin TF32 off for their own extent, whatever the scope, so that
+cuBLAS never runs an fp32 ``trsm`` on the tensor cores inside a
+"default" scope.
 """
 
 from __future__ import annotations
@@ -102,3 +107,21 @@ def xger(alpha, x: torch.Tensor, y: torch.Tensor,
     if isinstance(alpha, torch.Tensor):
         alpha = alpha[..., None, None]
     return A + alpha * (x.unsqueeze(-1) * y.unsqueeze(-2))
+
+
+def xtrsm(R: torch.Tensor, B: torch.Tensor, *, lower: bool = False,
+          trans: bool = False) -> torch.Tensor:
+    """Solve op(R) X = B for triangular R at full precision, batched over
+    leading axes: R (..., n, n), B (..., n, k) → (..., n, k)."""
+    M = R.mT if trans else R
+    # op(R) is upper exactly when R is lower and transposed, or upper and
+    # not; the solve always runs with TF32 off
+    with precision_scope("highest"):
+        return torch.linalg.solve_triangular(M, B, upper=lower == trans)
+
+
+def xtrsv(L: torch.Tensor, b: torch.Tensor, *, lower: bool = True,
+          trans: bool = False) -> torch.Tensor:
+    """Solve op(L) x = b for triangular L at full precision, batched over
+    leading axes: L (..., n, n), b (..., n) → (..., n)."""
+    return xtrsm(L, b.unsqueeze(-1), lower=lower, trans=trans).squeeze(-1)

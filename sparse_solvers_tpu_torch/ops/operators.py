@@ -4,7 +4,8 @@ and the matrix.
 
 The core touches A only through these products (reference call stack:
 src/solvers/homotopy-cpu.cpp): matvec p = A d, rmatvec c = Aᵀ r, column
-v = A e_j and the Gram column g = AᵀA e_j with vᵀv. Each takes a leading
+v = A e_j and the Gram column g = AᵀA e_j with vᵀv. The IRLS core holds
+Q in the same operator and adds the weighted Gram Qᵀ(Q∘w). Each takes a leading
 lane axis, as the vmapped JAX core sees them: every n- or m-vector is
 (b, n) or (b, m), every column index (b,), every slot vector (b, K). The
 shared A then multiplies all lanes in one product (``xgemm`` with the
@@ -98,6 +99,12 @@ class DenseOperator(NamedTuple):
                     row.gather(1, col.long()[:, None])[:, 0])
         g, vtv = self.gram_column(col)
         return active_set.take(g, slots, n), vtv
+
+    def gram_weighted(self, w):
+        """Aᵀ(A ∘ w), the IRLS Newton Gram (irls-cpu.cpp:47-48), at the
+        scope's precision: w (b, n) scales A's columns per lane and gives
+        (b, n, n); a (n,) w gives one (n, n)."""
+        return blas.xgemm(self.A, self.A * w.unsqueeze(-2), trans_a=True)
 
     def mdot(self, u, v):
         """Inner product of two m-vectors per lane."""

@@ -314,3 +314,69 @@ def degenerate_case():
     dorm = np.zeros(2, bool)
     return ((inv, gk, xa, da, ca, ind, u1, idx, kk, gamma, vtv, cnew, live,
              doins, dorm), 0.01, n)
+
+
+def irls_problem(m, n, batch, k, seed, dtype=np.float64):
+    """tests/test_batch.py's IRLS ensemble: ℓ₁-normalized gaussian columns
+    and k-sparse positive signals in [0.2, 1). Returns (A, Y)."""
+    rng = np.random.RandomState(seed)
+    A = rng.randn(m, n)
+    A = A / np.abs(A).sum(axis=0)
+    Y = []
+    for _ in range(batch):
+        x = np.zeros(n)
+        x[rng.choice(n, k, replace=False)] = rng.uniform(0.2, 1.0, k)
+        Y.append(A @ x)
+    return A.astype(dtype), np.stack(Y).astype(dtype)
+
+
+def competing_pair(m, n, b, rho_lo=0.9, rho_hi=0.96, seed=0,
+                   dtype=np.float32):
+    """tests/test_irls_stabilized.py's ensemble: per lane a leader of 1.0
+    and a competitor of ρ ∈ [rho_lo, rho_hi] plus uniform(0, 1e-3) noise.
+    Returns (A, Y, leaders)."""
+    rng = np.random.RandomState(seed)
+    A = rng.randn(m, n).astype(dtype)
+    A /= np.linalg.norm(A, axis=0)
+    Y = np.zeros((b, m), dtype)
+    leaders = np.zeros(b, np.int64)
+    for i in range(b):
+        j1, j2 = rng.choice(n, 2, replace=False)
+        x0 = np.zeros(n, dtype)
+        x0[j1] = 1.0
+        x0[j2] = rng.uniform(rho_lo, rho_hi)
+        Y[i] = A @ x0 + rng.uniform(0, 1e-3, m).astype(dtype)
+        leaders[i] = j1
+    return A, Y, leaders
+
+
+def bench_competing_pair(A, batch, seed=7):
+    """benchmarks/bench_irls_batch.py:105-125's sustained-regime signals
+    for A (float32): the ρ of every lane drawn first, then per lane the
+    pair and the noise. Returns (Y, leaders)."""
+    m, n = A.shape
+    rng = np.random.RandomState(seed)
+    rho = rng.uniform(0.9, 0.96, batch).astype(np.float32)
+    Y = np.zeros((batch, m), np.float32)
+    leaders = np.zeros(batch, np.int64)
+    for i in range(batch):
+        j1, j2 = rng.choice(n, 2, replace=False)
+        x0 = np.zeros(n, np.float32)
+        x0[j1] = 1.0
+        x0[j2] = rho[i]
+        Y[i] = A @ x0 + rng.uniform(0, 1e-3, m).astype(np.float32)
+        leaders[i] = j1
+    return Y, leaders
+
+
+def cs_problem(m, n, k, seed, dtype=np.float64):
+    """tests/test_irls_cg.py's compressed-sensing instance: unit-norm
+    gaussian columns and a signed k-sparse truth with |x| in [0.5, 1.5).
+    Returns (A, x, y)."""
+    rng = np.random.RandomState(seed)
+    A = rng.randn(m, n).astype(dtype)
+    A /= np.linalg.norm(A, axis=0)
+    x = np.zeros(n, dtype)
+    sup = rng.choice(n, k, replace=False)
+    x[sup] = rng.choice([-1.0, 1.0], k) * rng.uniform(0.5, 1.5, k)
+    return A, x, (A @ x).astype(dtype)

@@ -233,6 +233,12 @@ def test_missing_gpu_is_an_error_not_a_cpu_run():
         pt.Homotopy(np.eye(4, dtype=np.float32))
 
 
+def test_version_matches_jax():
+    """The port's own copy of utils/config.py gives the JAX package's
+    version."""
+    assert pt.version() == ss.version() == [0, 2, 0]
+
+
 def test_import_leaves_jax_out():
     code = ("import sys, sparse_solvers_tpu_torch; "
             "bad = [m for m in sys.modules if m == 'jax' "

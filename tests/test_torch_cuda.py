@@ -22,7 +22,12 @@ sum exactly equal to the twin (every value exact in f32). K1 and K2 also
 run at the gram-free drivers' shape (m=2048, n=65536, b=256). Drivers
 (with a Gram and gram-free) and the per-lane Homotopy and OMP cores on the
 card against the same code on the CPU twins at "high": iterations exact,
-X atol 1e-5 (float64: 1e-10).
+X atol 1e-5 (float64: 1e-10). The IRLS family, which has no hand kernel:
+the triangular solves under "default" bit-equal to "highest" (TF32 pinned
+off), the Cholesky SPD flag per lane, and ``Irls`` (each mode, from one
+numpy QR) and ``IrlsCg`` on the card against the CPU: iterations and flags
+exact, X within 1e-4 (``Irls`` float32), 1e-5 (``IrlsCg`` float32), 1e-10
+(float64).
 """
 
 import numpy as np
@@ -518,3 +523,94 @@ def test_profiling_measures_on_card(dev):
     if "h100" in torch.cuda.get_device_name(0).lower():
         assert profiling.detect_chip() is profiling.CHIPS["h100"]
         assert 0 < r.fraction_of_peak("highest") < 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_triangular_solves_ignore_the_default_scope(dev, dtype):
+    """xtrsm/xtrsv pin TF32 off for their own extent: under "default"
+    (which allows TF32 for products) bit-equal to the same call under
+    "highest", at the IRLS trsm shape (R 1024×1024, 256 right-hand
+    sides); the scope's TF32 setting is back afterwards."""
+    from sparse_solvers_tpu_torch.ops import blas
+    g = torch.Generator(device=dev).manual_seed(3)
+    R = torch.linalg.qr(torch.randn(2048, 1024, generator=g, device=dev,
+                                    dtype=dtype))[1]
+    B = torch.randn(1024, 256, generator=g, device=dev, dtype=dtype)
+    with blas.precision_scope("highest"):
+        Xh = blas.xtrsm(R, B, lower=False)
+        xh = blas.xtrsv(R.T, B[:, 0], lower=True, trans=True)
+    with blas.precision_scope("default"):
+        Xd = blas.xtrsm(R, B, lower=False)
+        xd = blas.xtrsv(R.T, B[:, 0], lower=True, trans=True)
+        assert torch.backends.cuda.matmul.allow_tf32
+    assert torch.equal(Xd, Xh) and torch.equal(xd, xh)
+    with blas.precision_scope("highest"):
+        resid = float((R @ Xh - B).abs().max())
+    assert resid <= (1e-3 if dtype == torch.float32 else 1e-10)
+
+
+def test_cholesky_spd_flags_on_card(dev):
+    """The SPD flag per lane on the card (SPD, singular, negative
+    definite), equal to the CPU's, and the SPD factor within 1e-5."""
+    from sparse_solvers_tpu_torch.linalg.cholesky import cholesky_spd
+    rng = np.random.RandomState(4)
+    noise = rng.randn(8, 8)
+    A = np.stack([noise @ noise.T + 8 * np.eye(8), np.ones((8, 8)),
+                  -2 * np.eye(8)]).astype(np.float32)
+    Lg, fg = cholesky_spd(torch.from_numpy(A).to(dev))
+    Lc, fc = cholesky_spd(torch.from_numpy(A))
+    assert fg.tolist() == fc.tolist() == [True, False, False]
+    np.testing.assert_allclose(Lg[0].cpu().numpy(), Lc[0].numpy(),
+                               atol=1e-5)
+
+
+IRLS_MODES = {"fast": dict(), "exact": dict(mode="exact"),
+              "stabilized": dict(stabilized=True), "gemm": dict()}
+
+
+@pytest.mark.parametrize("mode", sorted(IRLS_MODES))
+def test_irls_on_card_matches_cpu(dev, mode, monkeypatch):
+    """Irls on the card against the same façade on the CPU, in each mode,
+    both from one numpy QR (cuSOLVER's column signs may differ from
+    LAPACK's): iterations and spd flags exact, X within 1e-4; a float64
+    fast solve within 1e-10. No hand kernel launches."""
+    from _torch_cases import irls_problem
+    from sparse_solvers_tpu_torch import Irls
+    from sparse_solvers_tpu_torch.ops import dispatch
+    monkeypatch.setenv("SS_IRLS_GEMM", "1" if mode == "gemm" else "0")
+    cases = [(np.float32, 1e-4)] + [(np.float64, 1e-10)] * (mode == "fast")
+    for dtype, atol in cases:
+        A, Y = irls_problem(60, 30, 8, 3, seed=13, dtype=dtype)
+        Q, R = np.linalg.qr(A)
+        out = {}
+        for where in (dev, "cpu"):
+            dispatch.reset_launches()
+            s = Irls.from_numpy(A, Q=Q, R=R, device=where,
+                                **IRLS_MODES[mode])
+            X, rep = s.solve_batch(Y, 0.01, 50)
+            out[str(where)] = (X.cpu().numpy(), rep.iter.tolist(),
+                               rep.spd_failure.tolist())
+            assert not any(dispatch.launches.values())
+        (Xg, ig, sg), (Xc, ic, sc) = out[str(dev)], out["cpu"]
+        assert ig == ic and sg == sc
+        np.testing.assert_allclose(Xg, Xc, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,tol,atol", [(np.float32, 1e-5, 1e-5),
+                                            (np.float64, 1e-8, 1e-10)])
+def test_irls_cg_on_card_matches_cpu(dev, dtype, tol, atol):
+    """IrlsCg on the card against the CPU: three lanes of 5, 3 and 8
+    nonzeros, iterations and breakdown flags exact, X within atol."""
+    from _torch_cases import cs_problem
+    from sparse_solvers_tpu_torch import IrlsCg
+    A, _, _ = cs_problem(64, 256, 5, seed=0, dtype=dtype)
+    Y = np.stack([A @ cs_problem(64, 256, k, seed=s, dtype=dtype)[1]
+                  for s, k in ((0, 5), (4, 3), (9, 8))])
+    out = {}
+    for where in (dev, "cpu"):
+        X, rep = IrlsCg(A, device=where).solve_batch(Y, tol, 80)
+        out[str(where)] = (X.cpu().numpy(), rep.iter.tolist(),
+                           rep.spd_failure.tolist())
+    (Xg, ig, sg), (Xc, ic, sc) = out[str(dev)], out["cpu"]
+    assert ig == ic and sg == sc
+    np.testing.assert_allclose(Xg, Xc, atol=atol)
