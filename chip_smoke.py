@@ -64,6 +64,29 @@ loops run none of K1 to K6, as the JAX loops reach no ``pallas_call``):
   * one profiled batch of fast IRLS and of CG-IRLS at 1024x65536 (device
     time, busy share, top device operations), and cross-device checks.
 
+Then CoSaMP and the C++ host engine, each phase one JSON line with the
+card's name and power limit:
+
+  * ``Cosamp(A, 64)`` on the OMP workload (``make_sparse_problem(4096,
+    8192, 64, 256, seed=0)``) and ``Cosamp(A, 16)`` at the gram-free shape
+    (2048x65536), "highest", tol 1e-2, 20 rounds, through
+    ``solve_batch_on_device``: every lane within the tolerance, the top-k
+    support exact on every lane, the error against a float64 host
+    recompute on 16 lanes, K1 to K6 launched 0 times; the median of 5
+    fenced batches with its quartiles, the rounds, the peak device memory
+    (below one n×n f32 tensor at 2048x65536), and one profiled batch
+    (device ms, busy share, top device operations by time and by count);
+  * the host engine (``backend/native.py``, built from ``csrc/`` by g++):
+    its build seconds and ``blas_info()``, then at problems of at most 2¹⁶
+    elements (128x512 ``Homotopy``, ``Omp`` picks 1 and 4, ``IrlsCg``;
+    256x128 ``Irls``, 64 lanes) "auto" plans the torch route on a card
+    façade and the host engine on a CPU façade, engine="native" on a card
+    façade matches the torch route on the card with equal supports, K1 to
+    K6 are launched 0 times on the native calls, and the median latency
+    of one ``solve``
+    and of one 64-lane ``solve_batch`` on each route. The phase fails if
+    the library does not build or load.
+
 Any failed check raises, so the script exits non-zero and never prints
 its last line. Needs one CUDA card; imports nothing of JAX.
 
@@ -81,6 +104,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 from pathlib import Path
 
@@ -121,6 +145,18 @@ IRLS_SHAPES, IRLS_BATCH, IRLS_TOL, IRLS_MAX_ITER = ((2048, 1024),
 STAB_TOL, STAB_MAX_ITER = 0.3, 60
 CG_CONFIGS = ((512, 4096, 16, 64, 30, 96), (1024, 65536, 24, 32, 25, 96))
 CG_TOL = 1e-3
+# CoSaMP on the OMP workload and at the gram-free shape (m, n, k), batch
+# 256, seed 0, "highest", tol 1e-2, 20 rounds
+COSAMP_SHAPES, COSAMP_TOL, COSAMP_ROUNDS = ((M, N, K_SPARSE),
+                                            GF_SHAPE), 1e-2, 20
+# the host engine: problems of at most 2¹⁶ elements, which a CPU façade's
+# "auto" routes to it: (family, m, n, k, tol, iterations); 64 lanes each
+HOST_CASES = (("homotopy", 128, 512, 8, 1e-3, 64),
+              ("omp", 128, 512, 8, 1e-3, 32),
+              ("gomp", 128, 512, 8, 1e-3, 32),
+              ("irls_cg", 128, 512, 8, 1e-5, 60),
+              ("irls", 256, 128, 1, 1e-3, 50))
+HOST_BATCH = 64
 
 
 def bound(flops: float, nbytes: float, peak_flops: float):
@@ -1191,22 +1227,31 @@ def irls_json(**fields) -> None:
     phase(json.dumps(fields))
 
 
-def timed_batches(run, runs: int = 5):
-    """(median ms of ``runs`` calls of ``run()`` after one warm-up, each
-    fenced by ``torch.cuda.synchronize()``, the last call's output, and
-    the peak of allocated device memory over all of them in GiB)."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    out = run()
-    torch.cuda.synchronize()
-    times = []
+def fenced_ms(run, runs: int):
+    """(the wall ms of each of ``runs`` calls of ``run()``, each fenced by
+    ``torch.cuda.synchronize()``, and the last call's output)."""
+    times, out = [], None
     for _ in range(runs):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, out
+
+
+def timed_batches(run, runs: int = 5):
+    """(median ms of ``runs`` calls of ``run()`` after one warm-up, each
+    fenced by ``torch.cuda.synchronize()``, its first and third quartiles,
+    the last call's output, and the peak of allocated device memory over
+    all of them in GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    times, out = fenced_ms(run, runs)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    return float(np.median(times)) * 1e3, out, peak
+    q1, med, q3 = np.percentile(times, [25, 50, 75])
+    return float(med), float(q1), float(q3), out, peak
 
 
 def irls_stats(X, rep):
@@ -1243,7 +1288,7 @@ def irls_batch_phase(dev, card):
                 plan = solver.explain(batch=IRLS_BATCH)
                 check(("newton" in plan) == (gemm == "1"),
                       f"irls {name}: plan {plan}")
-                ms, (X, rep), peak = timed_batches(
+                ms, _, _, (X, rep), peak = timed_batches(
                     lambda: solver.solve_batch_on_device(
                         Yd, IRLS_TOL, IRLS_MAX_ITER))
             finally:
@@ -1303,7 +1348,7 @@ def irls_stabilized_phase(dev, card, A):
     for name, stab in (("stabilized_sustained", True),
                        ("reference_recurrence_same_workload", False)):
         solver = Irls(A, stabilized=stab, device=dev)
-        ms, (X, rep), peak = timed_batches(
+        ms, _, _, (X, rep), peak = timed_batches(
             lambda: solver.solve_batch_on_device(Yd, STAB_TOL,
                                                  STAB_MAX_ITER))
         Xh, it, spd = irls_stats(X, rep)
@@ -1373,7 +1418,7 @@ def irls_cg_phase(dev, card):
         solver = IrlsCg(A, k_sparsity=2 * k, cg_max_iterations=cg_max,
                         device=dev)
         Yd = torch.from_numpy(Y).to(dev)
-        ms, (X, rep), peak = timed_batches(
+        ms, _, _, (X, rep), peak = timed_batches(
             lambda: solver.solve_batch_on_device(Yd, CG_TOL, max_outer))
         Xh, it, broke = irls_stats(X, rep)
         top = np.argsort(-np.abs(Xh), axis=1)[:, :k]
@@ -1395,10 +1440,10 @@ def irls_cg_phase(dev, card):
     return last
 
 
-def irls_profile(name, run, card):
+def irls_profile(name, run, card, phase="irls_profile"):
     """Phase 5: one call of ``run`` under ``utils/profiling.trace``: total
     device time, its share of the profiled wall time, and the top device
-    operations by name."""
+    operations by time and by count. ``phase`` names the JSON line."""
     from sparse_solvers_tpu_torch.utils import profiling
     torch.cuda.synchronize()
     with profiling.trace() as prof:
@@ -1412,10 +1457,14 @@ def irls_profile(name, run, card):
     total = sum(ms for ms, _, _ in ops)
     check(total > 0, f"{name} profile: the profiler saw no device time")
     top = sorted(ops, reverse=True)[:6]
-    irls_json(phase="irls_profile", path=name, device_ms=total,
+    by_count = sorted(ops, key=lambda op: (-op[1], -op[0]))[:6]
+    irls_json(phase=phase, path=name, device_ms=total,
               profiled_wall_ms=wall, busy_share=total / wall,
               top_device_ops=[{"name": key[:90], "ms": ms, "calls": count}
-                              for ms, count, key in top], card=card)
+                              for ms, count, key in top],
+              top_device_ops_by_count=[
+                  {"name": key[:90], "ms": ms, "calls": count}
+                  for ms, count, key in by_count], card=card)
 
 
 def irls_cross_device(dev):
@@ -1431,16 +1480,21 @@ def irls_cross_device(dev):
     Ycg = np.stack([Acg @ cs_problem(64, 256, k, seed=s,
                                      dtype=np.float32)[1]
                     for s, k in ((0, 5), (4, 3), (9, 8))])
-    cases = (("irls fast", lambda w: Irls.from_numpy(A, Q=Q, R=R, device=w),
+    # engine="jax": the torch route on the CPU twin too, where a CPU
+    # façade's "auto" would take the host engine at these sizes
+    cases = (("irls fast", lambda w: Irls.from_numpy(A, Q=Q, R=R,
+                                                     engine="jax", device=w),
               Y, 0.01, 50, 1e-4, "0"),
-             ("irls gemm", lambda w: Irls.from_numpy(A, Q=Q, R=R, device=w),
+             ("irls gemm", lambda w: Irls.from_numpy(A, Q=Q, R=R,
+                                                     engine="jax", device=w),
               Y, 0.01, 50, 1e-4, "1"),
              ("irls exact", lambda w: Irls.from_numpy(A, Q=Q, R=R,
                                                       mode="exact",
+                                                      engine="jax",
                                                       device=w),
               Y, 0.01, 50, 1e-4, "0"),
-             ("irls_cg", lambda w: IrlsCg(Acg, device=w), Ycg, 1e-5, 80,
-              1e-5, "0"))
+             ("irls_cg", lambda w: IrlsCg(Acg, engine="jax", device=w), Ycg,
+              1e-5, 80, 1e-5, "0"))
     for name, make, Yc, tol, max_it, atol, gemm in cases:
         os.environ["SS_IRLS_GEMM"] = gemm
         try:
@@ -1487,10 +1541,186 @@ def irls_paths(dev, card):
           f"took {time.perf_counter() - t0:.2f} s")
 
 
+def cosamp_phase(dev, card, m, n, k):
+    """``Cosamp(A, k)`` at "highest" on ``make_sparse_problem(m, n, k, 256,
+    seed=0)``, tol 1e-2, 20 rounds, through ``solve_batch_on_device``:
+    every lane within the tolerance, the top-k support exact on every
+    lane, the reported error against a float64 host recompute on 16 lanes,
+    no launch of K1 to K6 (the counts read from 0); the median of 5 fenced
+    batches with its quartiles, the rounds, the peak device memory, then
+    one profiled batch."""
+    from benchmarks._common import make_sparse_problem
+    from sparse_solvers_tpu_torch import Cosamp
+    from sparse_solvers_tpu_torch.ops import dispatch
+    name = f"cosamp {m}x{n}"
+    A, X0, Y = make_sparse_problem(m, n, k, BATCH, seed=0)
+    solver = Cosamp(A, k, device=dev)
+    Yd = torch.from_numpy(Y).to(dev)
+
+    def run():
+        return solver.solve_batch_on_device(Yd, COSAMP_TOL, COSAMP_ROUNDS)
+
+    dispatch.reset_launches()
+    ms, q1, q3, (X, rep), peak = timed_batches(run)
+    torch.cuda.synchronize()
+    launches = dict(dispatch.launches)
+    check(not any(launches.values()), f"{name} launched {launches}")
+    Xh = X.cpu().numpy()
+    errs = rep.solution_error.cpu().numpy()
+    rounds = rep.iter.cpu().numpy()
+    check(np.isfinite(Xh).all(), f"{name}: non-finite solution")
+    within = int((errs <= COSAMP_TOL).sum())
+    check(within == BATCH, f"{name}: {BATCH - within} lanes above tol")
+    check_supports(name, Xh, [set(np.flatnonzero(x).tolist()) for x in X0],
+                   k)
+    lanes = np.arange(0, BATCH, BATCH // 16)
+    gap, allowance = check_l2_certificate(name, A.astype(np.float64), Y, Xh,
+                                          errs, lanes, k)
+    nn_gib = n * n * 4 / 2 ** 30
+    if (m, n, k) == GF_SHAPE:
+        check(peak < nn_gib, f"{name}: peak {peak:.3f} GiB is not below "
+              f"one n×n f32 tensor ({nn_gib:.1f} GiB)")
+    plan = solver.explain(batch=BATCH, max_iterations=COSAMP_ROUNDS)
+    irls_json(phase="cosamp", m=m, n=n, k=k, batch=BATCH, tol=COSAMP_TOL,
+              max_rounds=COSAMP_ROUNDS, precision=plan["precision"],
+              union_capacity=plan["union_capacity"], ms_per_batch=ms,
+              quartiles_ms=[q1, q3], solves_per_sec=BATCH / ms * 1e3,
+              max_rounds_run=int(rounds.max()),
+              mean_rounds=float(rounds.mean()), lanes_within_tol=within,
+              supports_exact=BATCH, max_error=float(errs.max()),
+              certificate_max_gap=float(gap),
+              certificate_allowance=float(allowance), launches=launches,
+              peak_gib=peak, nn_f32_gib=nn_gib, card=card)
+    irls_profile(name, run, card, phase="cosamp_profile")
+    del solver, X, Yd
+    torch.cuda.empty_cache()
+
+
+def cosamp_paths(dev, card):
+    """CoSaMP at the OMP workload's shape and at the gram-free shape."""
+    t0 = time.perf_counter()
+    for m, n, k in COSAMP_SHAPES:
+        cosamp_phase(dev, card, m, n, k)
+    phase(f"CoSaMP phases took {time.perf_counter() - t0:.2f} s")
+
+
+def host_case(family, m, n, k, tol):
+    """(the façade maker(engine, device, precision) of ``family``, A, Y,
+    the truth) for a host-engine case."""
+    from benchmarks._common import make_sparse_problem
+    from sparse_solvers_tpu_torch import Homotopy, Irls, IrlsCg, Omp
+    if family == "irls":
+        A, X0, Y = make_sparse_problem(m, n, k, HOST_BATCH, seed=0)
+        Y = Y + np.random.RandomState(1).uniform(
+            0, 0.02, Y.shape).astype(np.float32)
+
+        def make(engine, where, precision=None):
+            return Irls(A, engine=engine, device=where)
+    elif family == "irls_cg":
+        A, X0, Y = make_sparse_problem(m, n, k, HOST_BATCH, signed=True,
+                                       amp=(0.5, 1.5))
+
+        def make(engine, where, precision=None):
+            return IrlsCg(A, k_sparsity=2 * k, engine=engine, device=where)
+    else:
+        A, X0, Y = make_sparse_problem(m, n, k, HOST_BATCH, seed=0)
+        cls, kw = {"homotopy": (Homotopy, {}), "omp": (Omp, {}),
+                   "gomp": (Omp, {"picks": 4})}[family]
+
+        def make(engine, where, precision=None):
+            return cls(A, engine=engine, precision=precision, device=where,
+                       **kw)
+    return make, A, Y, X0
+
+
+def host_engine_phase(dev, card):
+    """The C++ host engine on the card's machine, at problems of at most
+    2¹⁶ elements: the library builds and loads (the phase fails without
+    it); a card façade's "auto" plans the torch route and a CPU façade's
+    the host engine; engine="native" on a card façade solves on the host
+    and its solutions equal the torch route's on the card ("high" for
+    Homotopy and OMP, "highest" for the IRLS family) within 1e-4
+    (``Irls`` 1e-3: the host engine factors its own QR) with equal top-k
+    supports; no launch of K1 to K6 on the native calls; the median
+    latency of one ``solve`` (20 fenced calls) and of one 64-lane
+    ``solve_batch`` (10) on each route, the torch route at its façade's
+    default precision."""
+    from sparse_solvers_tpu_torch.backend import native
+    from sparse_solvers_tpu_torch.ops import dispatch
+    t0 = time.perf_counter()
+    built = native.library_path().exists()
+    lib = native.get_lib()
+    build_s = time.perf_counter() - t0
+    check(lib is not None, f"host library did not build or load: "
+          f"{native.load_error()}")
+    irls_json(phase="host_engine_build", seconds=build_s,
+              library=native.library_path().name, was_built_before=built,
+              blas=native.blas_info(), card=card)
+    for family, m, n, k, tol, max_it in HOST_CASES:
+        make, A, Y, X0 = host_case(family, m, n, k, tol)
+        dflt = make("auto", dev)
+        routes = {where: make("auto", where).explain(
+            batch=HOST_BATCH, max_iterations=max_it)["engine"]
+            for where in (dev, "cpu")}
+        check(routes == {dev: "torch", "cpu": "native"}, f"host {family}: "
+              f"auto planned {routes}")
+        host = make("native", dev)
+        plan = host.explain(batch=HOST_BATCH, max_iterations=max_it)
+        check(plan["engine"] == "native", f"host {family}: native planned "
+              f"{plan}")
+        ref = make("auto", dev, None if family.startswith("irls") else "high")
+        dispatch.reset_launches()
+        Xn, rn = host.solve_batch(Y, tol, max_it)
+        _, r1 = host.solve(Y[0], tol, max_it)
+        native_batch = fenced_ms(lambda: host.solve_batch(Y, tol, max_it),
+                                 10)[0]
+        native_one = fenced_ms(lambda: host.solve(Y[0], tol, max_it), 20)[0]
+        torch.cuda.synchronize()
+        launches = dict(dispatch.launches)
+        check(not any(launches.values()), f"host {family}: the native "
+              f"calls launched {launches}")
+        check(Xn.device == dev, f"host {family}: X on {Xn.device}")
+        Xt, rt = ref.solve_batch(Y, tol, max_it)
+        _, r1t = dflt.solve(Y[0], tol, max_it)
+        torch_batch = fenced_ms(lambda: dflt.solve_batch(Y, tol, max_it),
+                                10)[0]
+        torch_one = fenced_ms(lambda: dflt.solve(Y[0], tol, max_it), 20)[0]
+        Xn_h, Xt_h = Xn.cpu().numpy(), Xt.cpu().numpy()
+        dx = float(np.abs(Xn_h - Xt_h).max())
+        atol = 1e-3 if family == "irls" else 1e-4
+        kk = max(k, 1)
+        top_n = np.sort(np.argsort(-np.abs(Xn_h), axis=1)[:, :kk], axis=1)
+        top_t = np.sort(np.argsort(-np.abs(Xt_h), axis=1)[:, :kk], axis=1)
+        same = int((top_n == top_t).all(axis=1).sum())
+        truth = np.sort(np.argsort(-np.abs(X0), axis=1)[:, :kk], axis=1)
+        recovered = int((top_n == truth).all(axis=1).sum())
+        its_equal = int((rn.iter.cpu() == rt.iter.cpu()).sum())
+        check(dx <= atol and same == HOST_BATCH, f"host {family}: max|dX| "
+              f"{dx} (atol {atol}), supports equal on {same}/{HOST_BATCH}")
+        irls_json(phase="host_engine", family=family, m=m, n=n, k=k,
+                  batch=HOST_BATCH, tol=tol, max_iterations=max_it,
+                  auto_route_card=routes[dev], auto_route_cpu=routes["cpu"],
+                  max_abs_dx=dx, atol=atol,
+                  supports_equal=same, supports_recovered=recovered,
+                  iterations_equal_lanes=its_equal,
+                  solve_iterations={"native": r1.iter, "torch": r1t.iter},
+                  native_solve_ms=float(np.median(native_one)),
+                  native_batch_ms=float(np.median(native_batch)),
+                  torch_solve_ms=float(np.median(torch_one)),
+                  torch_batch_ms=float(np.median(torch_batch)),
+                  torch_precision=dflt.explain()["precision"],
+                  launches_native=launches, card=card)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    # engine="jax" on a CPU façade of at most 2¹⁶ elements warns that
+    # "auto" would take the host engine: the cross-device phases pin the
+    # torch route on their CPU twins on purpose
+    warnings.filterwarnings("ignore", "engine='jax' on a", RuntimeWarning)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1557,6 +1787,9 @@ def main() -> int:
     cross_device(dev)
     torch.cuda.synchronize()
     irls_paths(dev, card)
+    cosamp_paths(dev, card)
+    host_engine_phase(dev, card)
+    phase(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = []
     for name, res in results.items():

@@ -1,25 +1,35 @@
 """Public solver API — the port of ``sparse_solvers_tpu/api.py``'s
-``Homotopy``, ``Omp``, ``Irls`` and ``IrlsCg`` façades.
+``Homotopy``, ``Omp``, ``Irls``, ``IrlsCg`` and ``Cosamp`` façades.
 
-Ported: the four façades whole on one device except the host engine and
-``mesh=``: for ``Homotopy`` and ``Omp`` every ``solve*`` route, both
-modes, float32 and float64, with a Gram, without one and gram-free in the
-batch drivers, and ``picks`` for gOMP, and ``update_column``; for ``Irls``
-the fast (triangular-solve or R⁻¹-gemm Newton), exact and stabilized
-loops over a QR computed once; for ``IrlsCg`` the factorization-free
-loop and ``update_column``. Also the module functions ``densify_batch``,
-``densify_path``, ``lasso_at``, ``lasso_at_batch``, ``reconstruct_signal``
-and ``norm_l1``. Every other route raises ``NotImplementedError`` naming
-its ROADMAP.md item; the port adds no feature the JAX package lacks.
+Ported: the five façades whole on one device, all but ``mesh=``: for
+``Homotopy`` and ``Omp`` every ``solve*`` route, both modes, float32 and
+float64, with a Gram, without one and gram-free in the batch drivers, and
+``picks`` for gOMP, and ``update_column``; for ``Irls`` the fast
+(triangular-solve or R⁻¹-gemm Newton), exact and stabilized loops over a
+QR computed once; for ``IrlsCg`` the factorization-free loop and
+``update_column``; for ``Cosamp`` the support-replacing rounds; and the
+C++ host engine of ``csrc/`` (``engine="native"``, and ``"auto"`` on a
+CPU façade's problems of at most 2¹⁶ elements) for ``solve`` and
+``solve_batch`` of the first four. Also the module functions
+``densify_batch``, ``densify_path``, ``lasso_at``, ``lasso_at_batch``,
+``reconstruct_signal`` and ``norm_l1``. ``mesh=`` raises
+``NotImplementedError`` naming its ROADMAP.md item; the port adds no
+feature the JAX package lacks.
 
 PyTorch semantics against the JAX façade:
   * every façade takes ``device="cuda"`` and places A, and lazily AᵀA or
     Irls's QR, on that device; the default is "cuda", so a missing GPU is
     an error, never a silent CPU run. On a CPU device every kernel runs
     its plain twin.
-  * ``engine="auto"`` runs the torch routes: the slot-space driver or the
-    per-lane core. The JAX package's auto-routing of tiny problems to the
-    C++ host engine is ROADMAP.md Queue 1 item 4's open part.
+  * ``engine="native"`` runs ``solve`` and ``solve_batch`` on the C++
+    host engine (``backend/native.py``) and returns the result as tensors
+    on the solver's device. ``engine="auto"`` does the same for a problem
+    with m·n ≤ 2¹⁶ where the library builds, as the JAX package does,
+    but only on a CPU façade: a façade on the card keeps its work on the
+    card. Every other call runs the torch routes: the slot-space driver
+    or the per-lane core. ``engine="jax"`` names the torch routes, as the
+    JAX package's name for its device engine, and never takes the host
+    engine.
   * PyTorch runs eagerly: ``_fn`` returns a plain function, nothing is
     compiled or cached per shape, and solutions are tensors on the device.
     The regularization-path helpers work on the host, in numpy, as the
@@ -29,16 +39,19 @@ PyTorch semantics against the JAX façade:
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 import torch
 
 from . import convert as _convert
+from .backend import native as _native
 from .linalg import norms as _norms
 from .ops import blas as _blas
 from .ops import dispatch as _dispatch
 from .ops.operators import DenseOperator
 from .reports import HomotopyReport, IrlsReport, OmpReport
+from .solvers import cosamp as _cosamp
 from .solvers import homotopy as _homotopy
 from .solvers import homotopy_batch as _homotopy_batch
 from .solvers import irls as _irls
@@ -54,6 +67,11 @@ _GRAM_AUTO_BYTES = 1 << 30
 
 _PRECISION_VALUES = ("highest", "high", "default", "certified")
 
+# Below this m·n the JAX package's "auto" routes to the host engine
+# (api.py:305-307); the port's "auto" does so only on a CPU façade, as
+# no crossover against the card has set a threshold there.
+_NATIVE_AUTO_ELEMS = 1 << 16
+
 
 def _unported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
@@ -64,6 +82,44 @@ def _unported(what: str, item: int) -> NotImplementedError:
 def _default_tolerance(dtype) -> float:
     # reference binding default: 10 × machine epsilon (binding.cpp:108-110)
     return float(torch.finfo(dtype).eps) * 10
+
+
+def _warn_small_problem_jax(engine: str, m: int, n: int,
+                            device: torch.device) -> None:
+    """On a CPU façade, forcing engine="jax" at a size where "auto" would
+    take the host engine (api.py:83-94); a card façade's "auto" takes the
+    torch route too, so there is nothing to warn of."""
+    if (engine == "jax" and device.type == "cpu"
+            and m * n <= _NATIVE_AUTO_ELEMS):
+        warnings.warn(
+            f"engine='jax' on a {m}x{n} problem: device dispatch latency "
+            "will dominate the solve; engine='auto' (default) uses the "
+            "native host backend for problems this small",
+            RuntimeWarning, stacklevel=3)
+
+
+def _route_native(engine: str, m: int, n: int, probe: bool,
+                  device: torch.device) -> bool:
+    """The façades' engine routing (api.py:107-124): an explicit
+    ``engine="native"`` takes the host engine; ``"auto"`` does so for
+    m·n ≤ 2¹⁶ where the library is available, and only on a CPU façade:
+    a façade on the card keeps its work on the card unless the caller
+    names the host engine. ``probe=True`` answers without side effects
+    (no build, no error on a missing library) — ``explain()``'s contract.
+    Where "auto" cannot take the route it answers before the library is
+    looked at, so such a façade never builds it."""
+    if engine != "native" and (device.type != "cpu"
+                               or m * n > _NATIVE_AUTO_ELEMS):
+        return False
+    if not _native.available(build=not probe):
+        if engine == "native":
+            if probe:
+                return True  # a solve would attempt (and report) it
+            raise RuntimeError(
+                "native engine requested but the host backend is "
+                "unavailable (build failed or SS_NATIVE_DISABLE=1)")
+        return False
+    return True
 
 
 def _check_max_iterations(max_iterations: int) -> int:
@@ -154,6 +210,24 @@ class _Solver:
                 "device='cpu' to run the plain PyTorch twins")
         self._A = ndview.as_matrix(A, device=self._device)
         self._m, self._n = self._A.shape
+        self._A_host = None
+
+    def _host_A(self) -> np.ndarray:
+        """A as a host numpy array for the host engine, copied once."""
+        if self._A_host is None:
+            self._A_host = _numpy(self._A)
+        return self._A_host
+
+    def _from_host(self, *arrays):
+        """The host engine's numpy results as tensors on the solver's
+        device."""
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+            self._device) for a in arrays)
+
+    def _native_plan(self, mode: str) -> dict:
+        """explain()'s plan of a solve that the host engine carries."""
+        return {"engine": "native", "mode": mode,
+                "backend": "csrc host (C++)", "device": str(self._device)}
 
     def _replace_column(self, j: int, col) -> None:
         """Replace column j of A on the solver's device with ``col``. A is
@@ -167,6 +241,7 @@ class _Solver:
         A = self._A.clone()
         A[:, j] = v
         self._A = A
+        self._A_host = None
 
     @property
     def shape(self):
@@ -203,7 +278,8 @@ class _GramSolver(_Solver):
     def from_numpy(cls, A, G=None, **kwargs):
         """Build a solver whose Gram is the given (n, n) array instead of
         one computed here — tests feed the JAX-computed Gram so that both
-        packages step from identical state."""
+        packages step from identical state. The torch routes use it; the
+        host engine (``engine="auto"`` at m·n ≤ 2¹⁶) forms its own."""
         solver = cls(A, **kwargs)
         if G is not None:
             solver._G_cache = ndview.as_matrix(G, dtype=solver.dtype,
@@ -257,8 +333,10 @@ class Homotopy(_GramSolver):
     "cuda") is where A, the Gram and every solve live. Batches outside the
     sparse-matvec regime take the slot-space driver (float32, fast mode,
     gram-free without a Gram); single solves, the sparse-matvec regime,
-    float64 and ``mode="exact"`` take the per-lane core. ``engine`` "auto"
-    and "jax" both run these torch routes.
+    float64 and ``mode="exact"`` take the per-lane core. ``engine``:
+    "native" runs ``solve`` and ``solve_batch`` on the C++ host engine
+    (fast mode only), "auto" does so where m·n ≤ 2¹⁶, and "jax" never;
+    the other entries always take the torch routes.
     """
 
     def __init__(self, A, k_max: int | None = None, mode: str = "fast",
@@ -282,11 +360,11 @@ class Homotopy(_GramSolver):
                 "precision='certified' runs the path at one-pass "
                 "precision; mode='exact' (operation-for-operation "
                 "reference parity) requires 'high' or 'highest'")
-        if engine == "native":
-            raise _unported("engine='native' (the C++ host engine)", 4)
         if mesh is not None:
             raise _unported("mesh= (multi-GPU solving)", 10)
+        self._engine = engine
         self._load(A, device)
+        _warn_small_problem_jax(engine, self._m, self._n, self._device)
         self._k_max = k_max
         self._mode = mode
         self._precision = precision or ("certified" if mode == "fast"
@@ -306,10 +384,21 @@ class Homotopy(_GramSolver):
                             batch, self._n, self._A.dtype, sparse))
         return k_max, sparse, batch_native
 
+    def _use_native(self, probe: bool = False) -> bool:
+        """Whether ``solve``/``solve_batch`` run on the host engine; exact
+        mode never does (api.py:597-603)."""
+        if self._engine == "jax" or self._mode == "exact":
+            return False
+        return _route_native(self._engine, self._m, self._n, probe,
+                             self._device)
+
     def explain(self, batch: int | None = None,
                 max_iterations: int = 100) -> dict:
-        """Execution plan for a solve of this configuration: which
-        formulation runs and which form of each kernel. No side effects."""
+        """Execution plan for a solve of this configuration: which engine
+        and formulation run and which form of each kernel. No side
+        effects (no build of the host library)."""
+        if self._use_native(probe=True):
+            return self._native_plan(self._mode)
         k_max, sparse, batch_native = self._plan(max_iterations, batch)
         if batch_native:
             formulation = ("slot-space batch driver (scan + transition "
@@ -408,6 +497,12 @@ class Homotopy(_GramSolver):
                              device=self._device)
         tol = self._tol(tolerance)
         _check_max_iterations(max_iterations)
+        if self._use_native():
+            k_max = self._k_max or min(self._n, max_iterations + 1)
+            xn, it, err = _native.homotopy_solve(
+                self._host_A(), _numpy(y), tol, max_iterations, k_max)
+            return self._from_host(xn)[0], HomotopyReport(
+                iter=it, solution_error=err)
         x, rep = self._fn(max_iterations, batch=None)(self._A, self._G, y,
                                                       tol)
         it, err = int(rep.iter), float(rep.solution_error)
@@ -491,6 +586,15 @@ class Homotopy(_GramSolver):
                                    device=self._device)
         tol = self._tol(tolerance)
         _check_max_iterations(max_iterations)
+        if self._use_native():
+            k_max = self._k_max or min(self._n, max_iterations + 1)
+            X, iters, errs = self._from_host(*_native.homotopy_solve_batch(
+                self._host_A(), _numpy(Y), tol, max_iterations, k_max))
+            rep = _homotopy.HomotopyReportArrays(iter=iters,
+                                                 solution_error=errs)
+            if not dense:
+                return (*_compact_from_dense(X, k_max), rep)
+            return X, rep
         X, rep = self._fn(max_iterations, batch=Y.shape[0], dense=dense)(
             self._A, self._G, Y, tol)
         if self._precision == "certified":
@@ -545,8 +649,9 @@ class Omp(_GramSolver):
     holds none. ``precision`` "certified" (the fast-mode default) runs the
     pick loop at one-pass precision with a high-precision residual
     certificate per lane, and ``solve``/``solve_batch`` re-solve lanes that
-    miss the tolerance at "high". ``engine`` "auto" and "jax" both run
-    these torch routes.
+    miss the tolerance at "high". ``engine`` routes as ``Homotopy``'s:
+    "native" (fast mode only), and "auto" where m·n ≤ 2¹⁶, run ``solve``
+    and ``solve_batch`` on the C++ host engine.
     """
 
     def __init__(self, A, k_max: int | None = None, mode: str = "fast",
@@ -585,15 +690,15 @@ class Omp(_GramSolver):
                 "or use mode='fast'")
         if k_max is not None and k_max < 1:
             raise ValueError(f"k_max must be >= 1, got {k_max}")
-        if engine == "native":
-            raise _unported("engine='native' (the C++ host engine)", 4)
         if mesh is not None:
             raise _unported("mesh= (multi-GPU solving)", 10)
+        self._engine = engine
         self._load(A, device)
         if picks > self._n:
             raise ValueError(
                 f"picks must be <= n = {self._n} (each round selects "
                 f"picks inactive columns), got {picks}")
+        _warn_small_problem_jax(engine, self._m, self._n, self._device)
         self._k_max = k_max
         self._mode = mode
         self._precision = precision or ("certified" if mode == "fast"
@@ -631,11 +736,22 @@ class Omp(_GramSolver):
         return _homotopy_batch.route_batch_native(
             batch, self._n, self._A.dtype, sparse=small)
 
+    def _use_native(self, probe: bool = False) -> bool:
+        """Whether ``solve``/``solve_batch`` run on the host engine; exact
+        mode never does (api.py:1565-1570)."""
+        if self._engine == "jax" or self._mode == "exact":
+            return False
+        return _route_native(self._engine, self._m, self._n, probe,
+                             self._device)
+
     def explain(self, batch: int | None = None,
                 max_iterations: int = 100) -> dict:
-        """Execution plan for a solve of this configuration: which
-        formulation runs and which form of each kernel. No side effects."""
+        """Execution plan for a solve of this configuration: which engine
+        and formulation run and which form of each kernel. No side
+        effects (no build of the host library)."""
         k_max = self._resolved_k_max(max_iterations)
+        if self._use_native(probe=True):
+            return dict(self._native_plan(self._mode), k_max=k_max)
         driver = self._route_driver(batch, max_iterations)
         plan = {
             "engine": "torch",
@@ -731,6 +847,12 @@ class Omp(_GramSolver):
                              device=self._device)
         tol = self._tol(tolerance)
         _check_max_iterations(max_iterations)
+        if self._use_native():
+            xn, it, err = _native.omp_solve(
+                self._host_A(), _numpy(y), tol, max_iterations,
+                self._resolved_k_max(max_iterations), picks=self._picks)
+            return self._from_host(xn)[0], OmpReport(iter=it,
+                                                     solution_error=err)
         x, rep = self._fn(max_iterations, batch=None)(self._A, self._G, y,
                                                       tol)
         it, err = int(rep.iter), float(rep.solution_error)
@@ -767,6 +889,15 @@ class Omp(_GramSolver):
                                    device=self._device)
         tol = self._tol(tolerance)
         _check_max_iterations(max_iterations)
+        if self._use_native():
+            k_max = self._resolved_k_max(max_iterations)
+            X, iters, errs = self._from_host(*_native.omp_solve_batch(
+                self._host_A(), _numpy(Y), tol, max_iterations, k_max,
+                picks=self._picks))
+            rep = _omp.OmpReportArrays(iter=iters, solution_error=errs)
+            if not dense:
+                return (*_compact_from_dense(X, k_max), rep)
+            return X, rep
         out, rep = self._fn(max_iterations, batch=Y.shape[0], dense=dense)(
             self._A, self._G, Y, tol)
         if self._precision == "certified":
@@ -818,8 +949,10 @@ class Irls(_Solver):
     iterate by its maximum (the JAX package's beyond-reference variant).
     With ``SS_IRLS_GEMM=1`` a batched fast solve applies the cached R⁻¹ by
     one product per iteration instead of a triangular solve. ``device``
-    (default "cuda") is where A, Q, R and every solve live; ``engine``
-    "auto" and "jax" both run the torch route.
+    (default "cuda") is where A, Q, R and every solve live. ``engine``
+    "native" runs ``solve`` and ``solve_batch`` on the C++ host engine
+    over its own QR (not with ``stabilized``), "auto" does so where m·n ≤
+    2¹⁶ and the loop is not stabilized, and "jax" never.
     """
 
     def __init__(self, A, engine: str = "auto", mode: str = "fast",
@@ -838,11 +971,12 @@ class Irls(_Solver):
             raise ValueError(
                 "stabilized IRLS runs on the jax engine (the native host "
                 "backend implements the reference recurrence)")
-        if engine == "native":
-            raise _unported("engine='native' (the C++ host engine)", 4)
         if mesh is not None:
             raise _unported("mesh= (multi-GPU solving)", 10)
+        self._engine = engine
+        self._native = None
         self._load(A, device)
+        _warn_small_problem_jax(engine, self._m, self._n, self._device)
         if self._m < self._n:
             raise ValueError(
                 "Irls requires m >= n (underdetermined systems not "
@@ -860,7 +994,9 @@ class Irls(_Solver):
         (n, n) and, optionally, R⁻¹ instead of ones computed here — tests
         feed the JAX package's so that both packages step from identical
         factors (QR sign conventions differ between XLA and LAPACK or
-        cuSOLVER; ``convert.irls_factor_from_numpy``)."""
+        cuSOLVER; ``convert.irls_factor_from_numpy``). The torch route
+        uses them; the host engine (``engine="auto"`` at m·n ≤ 2¹⁶)
+        factors A itself."""
         if (Q is None) != (R is None):
             raise ValueError("Q and R are given together or not at all")
         solver = cls(A, **kwargs)
@@ -901,10 +1037,26 @@ class Irls(_Solver):
             return False
         return os.environ.get("SS_IRLS_GEMM") == "1"
 
+    def _use_native(self, probe: bool = False) -> bool:
+        """Whether ``solve``/``solve_batch`` run on the host engine; the
+        stabilized loop never does (api.py:1055-1061)."""
+        if self._engine == "jax" or self._stabilized:
+            return False
+        return _route_native(self._engine, self._m, self._n, probe,
+                             self._device)
+
+    def _host_solver(self) -> _native.IrlsNative:
+        """The host engine's construct-once IRLS, its QR factored once."""
+        if self._native is None:
+            self._native = _native.IrlsNative(self._host_A())
+        return self._native
+
     def explain(self, batch: int | None = None,
                 max_iterations: int = 100) -> dict:
         """Execution plan for a solve of this configuration (the JAX
         façade's keys). No side effects."""
+        if self._use_native(probe=True):
+            return self._native_plan(self._mode)
         plan = {"engine": "torch", "backend": self._device.type,
                 "device": str(self._device), "mode": self._mode,
                 "precision": self._precision,
@@ -939,6 +1091,12 @@ class Irls(_Solver):
         (n,) tensor on the solver's device."""
         y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
                              device=self._device)
+        if self._use_native():
+            _check_max_iterations(max_iterations)
+            xn, it, err, spd = self._host_solver().solve(
+                _numpy(y), self._tol(tolerance), max_iterations)
+            return self._from_host(xn)[0], IrlsReport(
+                iter=it, solution_error=err, spd_failure=spd)
         x, rep = _first_lane(self._run(y[None], self._tol(tolerance),
                                        max_iterations, batched=False))
         return x, IrlsReport(iter=int(rep.iter),
@@ -952,6 +1110,15 @@ class Irls(_Solver):
         device. An empty batch returns (0, n) and (0,) tensors."""
         Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
                                    device=self._device)
+        if self._use_native():
+            # the threaded C++ batch over the cached QR: one workspace per
+            # thread, each lane the single-solve iteration
+            _check_max_iterations(max_iterations)
+            X, its, errs, spds = self._from_host(
+                *self._host_solver().solve_batch(
+                    _numpy(Y), self._tol(tolerance), max_iterations))
+            return X, _irls.IrlsReportArrays(iter=its, solution_error=errs,
+                                             spd_failure=spds)
         return self._run(Y, self._tol(tolerance), max_iterations,
                          batched=True)
 
@@ -980,8 +1147,9 @@ class IrlsCg(_Solver):
     ``cg_max_iterations`` (default min(m, 128)) and ``cg_tolerance``
     (default tolerance/10 within [10·eps, √eps]), ``precision`` of the
     products. ``device`` (default "cuda") is where A and every solve live;
-    ``engine`` "auto" and "jax" both run the torch route. Reports carry the
-    reference IRLS fields: solution_error = final ε, spd_failure = an
+    ``engine`` "native" runs ``solve`` and ``solve_batch`` on the C++ host
+    engine, "auto" does so where m·n ≤ 2¹⁶, and "jax" never. Reports carry
+    the reference IRLS fields: solution_error = final ε, spd_failure = an
     inner-CG curvature breakdown.
     """
 
@@ -1007,10 +1175,9 @@ class IrlsCg(_Solver):
         if cg_tolerance is not None and not cg_tolerance > 0:
             raise ValueError(
                 f"cg_tolerance must be > 0, got {cg_tolerance}")
-        if engine == "native":
-            raise _unported("engine='native' (the C++ host engine)", 4)
         if mesh is not None:
             raise _unported("mesh= (multi-GPU solving)", 10)
+        self._engine = engine
         self._load(A, device)
         if self._m > self._n:
             raise ValueError(
@@ -1021,6 +1188,7 @@ class IrlsCg(_Solver):
         self._cg_max = cg_max_iterations
         self._cg_tol = cg_tolerance
         self._precision = precision
+        _warn_small_problem_jax(engine, self._m, self._n, self._device)
 
     def update_column(self, j: int, col) -> None:
         """Replace column j of the sensing matrix on the solver's device
@@ -1028,10 +1196,25 @@ class IrlsCg(_Solver):
         so nothing else needs updating."""
         self._replace_column(j, col)
 
+    def _use_native(self, probe: bool = False) -> bool:
+        """Whether ``solve``/``solve_batch`` run on the host engine
+        (api.py:1261-1264)."""
+        if self._engine == "jax":
+            return False
+        return _route_native(self._engine, self._m, self._n, probe,
+                             self._device)
+
+    def _host_knobs(self) -> dict:
+        return dict(p=self._p, k_sparsity=self._k,
+                    cg_max_iterations=self._cg_max,
+                    cg_tolerance=self._cg_tol)
+
     def explain(self, batch: int | None = None,
                 max_iterations: int = 100) -> dict:
         """Execution plan for a solve of this configuration (the JAX
         façade's keys). No side effects."""
+        if self._use_native(probe=True):
+            return dict(self._native_plan("cg"), factorization_free=True)
         return {"engine": "torch", "backend": self._device.type,
                 "device": str(self._device), "mode": "cg",
                 "precision": self._precision, "p": self._p,
@@ -1058,6 +1241,13 @@ class IrlsCg(_Solver):
         (n,) tensor on the solver's device."""
         y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
                              device=self._device)
+        if self._use_native():
+            _check_max_iterations(max_iterations)
+            xn, it, eps, broke = _native.irls_cg_solve(
+                self._host_A(), _numpy(y), self._tol(tolerance),
+                max_iterations, **self._host_knobs())
+            return self._from_host(xn)[0], IrlsReport(
+                iter=it, solution_error=eps, spd_failure=broke)
         x, rep = _first_lane(self._run(y[None], self._tol(tolerance),
                                        max_iterations))
         return x, IrlsReport(iter=int(rep.iter),
@@ -1071,6 +1261,13 @@ class IrlsCg(_Solver):
         device. An empty batch returns (0, n) and (0,) tensors."""
         Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
                                    device=self._device)
+        if self._use_native():
+            _check_max_iterations(max_iterations)
+            X, its, eps, broke = self._from_host(*_native.irls_cg_solve_batch(
+                self._host_A(), _numpy(Y), self._tol(tolerance),
+                max_iterations, **self._host_knobs()))
+            return X, _irls.IrlsReportArrays(iter=its, solution_error=eps,
+                                             spd_failure=broke)
         return self._run(Y, self._tol(tolerance), max_iterations)
 
     def solve_on_device(self, y: torch.Tensor, tolerance,
@@ -1083,6 +1280,117 @@ class IrlsCg(_Solver):
                               max_iterations: int = 100):
         """Batched solve over a (batch, m) tensor already on the solver's
         device; returns (X, IrlsReportArrays)."""
+        return self._run(Y, tolerance, max_iterations)
+
+
+class Cosamp(_Solver):
+    """CoSaMP — Compressive Sampling Matching Pursuit over a fixed sensing
+    matrix A (m×n) with target sparsity ``k_sparsity`` (Needell–Tropp
+    2009), the port of ``sparse_solvers_tpu.Cosamp`` on one device.
+
+    Each round replaces the support: the 2k largest inactive correlations
+    join the current k support columns, one least-squares solve runs on
+    the ≤ 3k union (a batched Cholesky of its Gram), and the k largest
+    entries survive (``solvers/cosamp.py``). ``k_sparsity`` is required;
+    ``max_iterations`` counts rounds (default 20). ``precision`` pins the
+    products ("highest" default — the round's Gram feeds a Cholesky;
+    "high", "default"; no "certified"). ``engine`` is "jax" (the default,
+    as in the JAX package) or "auto", and both run the torch route: CoSaMP
+    has no host-engine twin. ``device`` (default "cuda") is where A, its
+    transposed copy and every solve live. Reports are ``OmpReport`` /
+    ``OmpReportArrays``: iter = rounds committed, solution_error =
+    ‖y − Ax‖₂.
+    """
+
+    def __init__(self, A, k_sparsity: int, precision: str = "highest",
+                 engine: str = "jax", mesh=None, device="cuda"):
+        if engine not in ("auto", "jax"):
+            raise ValueError(
+                "Cosamp runs on the jax engine (no native twin); got "
+                f"engine={engine!r}")
+        if precision not in ("highest", "high", "default"):
+            raise ValueError(
+                "precision must be 'highest', 'high' or 'default', "
+                f"got {precision!r}")
+        if mesh is not None:
+            raise _unported("mesh= (multi-GPU solving)", 10)
+        self._load(A, device)
+        if not isinstance(k_sparsity, int) or k_sparsity < 1:
+            raise ValueError(
+                f"k_sparsity must be an int >= 1, got {k_sparsity!r}")
+        if k_sparsity >= min(self._m, self._n):
+            raise ValueError(
+                "k_sparsity must be < min(m, n) = "
+                f"{min(self._m, self._n)} (the round needs a nonempty "
+                f"inactive candidate pool and an overdetermined union "
+                f"LS), got {k_sparsity}")
+        self._k = k_sparsity
+        self._precision = precision
+        self._AT_cache = None
+
+    def _AT(self) -> torch.Tensor:
+        """Aᵀ as a contiguous (n, m) tensor, made once: the rounds gather
+        the union's columns as its rows, which reads whole rows where a
+        gather of A's columns reads one element a memory sector
+        (``tools/profile_small_solve.py`` times both)."""
+        if self._AT_cache is None:
+            self._AT_cache = self._A.T.contiguous()
+        return self._AT_cache
+
+    def explain(self, batch: int | None = None,
+                max_iterations: int = 20) -> dict:
+        """Execution plan for a solve of this configuration (the JAX
+        façade's keys). No side effects."""
+        return {"engine": "torch", "backend": self._device.type,
+                "device": str(self._device), "mode": "cosamp",
+                "precision": self._precision, "k_sparsity": self._k,
+                "union_capacity": _cosamp.union_capacity(self._m, self._n,
+                                                         self._k),
+                "formulation": (("batched " if batch is not None else "")
+                                + "CoSaMP rounds (union LS via 3k-Gram "
+                                "Cholesky)"),
+                # gathers, products, sorts and a batched Cholesky, as the
+                # JAX rounds run no Pallas kernel
+                "kernels": {}}
+
+    def _run(self, Y: torch.Tensor, tolerance, max_iterations: int):
+        """The rounds over the lanes of Y (b, m) at the instance's
+        precision; returns (X (b, n), OmpReportArrays)."""
+        _check_max_iterations(max_iterations)
+        with _blas.precision_scope(self._precision):
+            return _cosamp.solve_cosamp(self._A, Y, self._k, tolerance,
+                                        max_iterations, AT=self._AT())
+
+    def solve(self, b, tolerance: float | None = None,
+              max_iterations: int = 20):
+        """Recover a k-sparse x with y ≈ Ax; returns (x, OmpReport) with x
+        an (n,) tensor on the solver's device."""
+        y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
+                             device=self._device)
+        x, rep = _first_lane(self._run(y[None], self._tol(tolerance),
+                                       max_iterations))
+        return x, OmpReport(iter=int(rep.iter),
+                            solution_error=float(rep.solution_error))
+
+    def solve_batch(self, B, tolerance: float | None = None,
+                    max_iterations: int = 20):
+        """Batched solve over signals B of shape (batch, m); returns (X
+        (batch, n), OmpReportArrays of per-lane tensors) on the solver's
+        device."""
+        Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
+                                   device=self._device)
+        return self._run(Y, self._tol(tolerance), max_iterations)
+
+    def solve_on_device(self, y: torch.Tensor, tolerance,
+                        max_iterations: int = 20):
+        """Solve for an (m,) tensor already on the solver's device; returns
+        (x, OmpReportArrays of 0-d tensors)."""
+        return _first_lane(self._run(y[None], tolerance, max_iterations))
+
+    def solve_batch_on_device(self, Y: torch.Tensor, tolerance,
+                              max_iterations: int = 20):
+        """Batched solve over a (batch, m) tensor already on the solver's
+        device; returns (X, OmpReportArrays)."""
         return self._run(Y, tolerance, max_iterations)
 
 

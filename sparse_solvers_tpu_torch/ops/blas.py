@@ -81,8 +81,9 @@ def _operands(*tensors: torch.Tensor):
 
 def xgemm(A: torch.Tensor, B: torch.Tensor, *, trans_a: bool = False,
           trans_b: bool = False) -> torch.Tensor:
-    """C = op(A) @ op(B) at the scope's precision, in A's dtype."""
-    Ma, Mb = _operands(A.T if trans_a else A, B.T if trans_b else B)
+    """C = op(A) @ op(B) at the scope's precision, in A's dtype, batched
+    over any leading axes: op transposes the last two."""
+    Ma, Mb = _operands(A.mT if trans_a else A, B.mT if trans_b else B)
     return torch.matmul(Ma, Mb)
 
 

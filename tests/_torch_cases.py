@@ -9,6 +9,10 @@ import numpy as np
 
 BIG = float(np.finfo(np.float32).max)
 
+# the port's torch route on the CPU, for tests of problems of m·n ≤ 2¹⁶:
+# a CPU façade's "auto" would send them to the C++ host engine
+TORCH_ROUTE = {"engine": "jax", "device": "cpu"}
+
 
 def compressive_problem(m, n, k, batch, seed=0):
     """Unit-column gaussian ensemble with k-sparse positive signals (the

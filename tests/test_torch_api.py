@@ -17,11 +17,12 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the port's tests need torch (pip install .[torch])")
 
 import sparse_solvers_tpu as ss
 import sparse_solvers_tpu_torch as pt
-from _torch_cases import compressive_problem
+from _torch_cases import TORCH_ROUTE, compressive_problem
 from sparse_solvers_tpu_torch import api as papi
 from sparse_solvers_tpu_torch.utils import ndview
 
@@ -47,7 +48,7 @@ def _support(x, k):
 
 def test_certified_certificates_and_supports(problem, monkeypatch):
     A, Y, Xt = problem
-    port = pt.Homotopy(A, k_max=K_MAX, precision="certified", device="cpu")
+    port = pt.Homotopy(A, k_max=K_MAX, precision="certified", **TORCH_ROUTE)
     X, rep = port.solve_batch(Y, TOL, MAX_IT)
     X, err = X.numpy(), rep.solution_error.numpy()
     assert np.all(err <= TOL)
@@ -67,7 +68,7 @@ def test_certified_certificates_and_supports(problem, monkeypatch):
 def test_high_precision_matches_jax(problem, monkeypatch):
     A, Y, _ = problem
     X, rep = pt.Homotopy(A, k_max=K_MAX, precision="high",
-                         device="cpu").solve_batch(Y, TOL, MAX_IT)
+                         **TORCH_ROUTE).solve_batch(Y, TOL, MAX_IT)
     Xj, repj = _jax_solver(monkeypatch, A, precision="high").solve_batch(
         Y, TOL, MAX_IT)
     np.testing.assert_array_equal(rep.iter.numpy(), np.asarray(repj.iter))
@@ -88,12 +89,12 @@ def test_certified_resolve_merge(problem, monkeypatch):
 
     monkeypatch.setattr(papi, "_certified_error", spoofed)
     Xc, rc = pt.Homotopy(A, k_max=K_MAX, precision="certified",
-                         device="cpu").solve_batch(Y, TOL, MAX_IT)
+                         **TORCH_ROUTE).solve_batch(Y, TOL, MAX_IT)
     monkeypatch.undo()
     Xf, rf = pt.Homotopy(A, k_max=K_MAX, precision="certified",
-                         device="cpu").solve_batch(Y, TOL, MAX_IT)
+                         **TORCH_ROUTE).solve_batch(Y, TOL, MAX_IT)
     Xh, rh = pt.Homotopy(A, k_max=K_MAX, precision="high",
-                         device="cpu").solve_batch(Y, TOL, MAX_IT)
+                         **TORCH_ROUTE).solve_batch(Y, TOL, MAX_IT)
     for lane in range(len(Y)):
         src_X, src_r = (Xh, rh) if lane in (1, 3) else (Xf, rf)
         assert torch.equal(Xc[lane], src_X[lane])
@@ -115,7 +116,7 @@ def test_exhausted_lanes_are_not_resolved(monkeypatch):
         return real(self, *a, **kw)
 
     monkeypatch.setattr(papi.Homotopy, "_fn", counting)
-    X, rep = pt.Homotopy(A, k_max=32, device="cpu").solve_batch(
+    X, rep = pt.Homotopy(A, k_max=32, **TORCH_ROUTE).solve_batch(
         Y, 1e-30, 4)
     assert np.all(rep.iter.numpy() == 4)
     assert not np.any(rep.solution_error.numpy() <= 1e-30)
@@ -126,7 +127,7 @@ def test_explain_shared_keys_match_jax(problem, monkeypatch):
     A, _, _ = problem
     for prec in ("certified", "high"):
         mine = pt.Homotopy(A, k_max=K_MAX, precision=prec,
-                           device="cpu").explain(batch=16,
+                           **TORCH_ROUTE).explain(batch=16,
                                                  max_iterations=MAX_IT)
         theirs = _jax_solver(monkeypatch, A, precision=prec).explain(
             batch=16, max_iterations=MAX_IT)
@@ -139,7 +140,7 @@ def test_explain_shared_keys_match_jax(problem, monkeypatch):
 
 def test_compact_output_and_on_device_entry(problem):
     A, Y, _ = problem
-    solver = pt.Homotopy(A, k_max=K_MAX, device="cpu")
+    solver = pt.Homotopy(A, k_max=K_MAX, **TORCH_ROUTE)
     X, rep = solver.solve_batch(Y, TOL, MAX_IT)
     vals, idxs, repc = solver.solve_batch(Y, TOL, MAX_IT, dense=False)
     assert vals.shape == idxs.shape == (16, K_MAX)
@@ -156,18 +157,18 @@ def test_from_numpy_uses_the_given_gram(problem):
     A, Y, _ = problem
     G = (A.T @ A).astype(np.float32)
     solver = pt.Homotopy.from_numpy(A, G, k_max=K_MAX, precision="high",
-                                    device="cpu")
+                                    **TORCH_ROUTE)
     assert torch.equal(solver._G, torch.from_numpy(G))
     X, rep = solver.solve_batch(Y, TOL, MAX_IT)
     X2, rep2 = pt.Homotopy(A, k_max=K_MAX, precision="high",
-                           device="cpu").solve_batch(Y, TOL, MAX_IT)
+                           **TORCH_ROUTE).solve_batch(Y, TOL, MAX_IT)
     assert torch.equal(rep.iter, rep2.iter)
     np.testing.assert_allclose(X.numpy(), X2.numpy(), atol=1e-5)
 
 
 def test_empty_batch():
     A, _, _ = compressive_problem(64, 128, 4, 1)
-    X, rep = pt.Homotopy(A, device="cpu").solve_batch(
+    X, rep = pt.Homotopy(A, **TORCH_ROUTE).solve_batch(
         np.zeros((0, 64), np.float32), TOL, 16)
     assert X.shape == (0, 128) and rep.iter.shape == (0,)
 
@@ -212,9 +213,8 @@ def test_ndview_matches_jax_ndview():
         ndview.as_matrix(np.ones((2, 2), np.complex64))
 
 
-# The routes that still raise: the host engine and multi-GPU solving.
+# The route that still raises: multi-GPU solving.
 UNPORTED = {
-    "engine_native": lambda A: pt.Homotopy(A, engine="native", device="cpu"),
     "mesh": lambda A: pt.Homotopy(A, mesh=object(), device="cpu"),
 }
 
@@ -224,6 +224,30 @@ def test_unported_routes_raise(route):
     A, _, _ = compressive_problem(64, 128, 4, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         UNPORTED[route](A)
+
+
+@pytest.mark.parametrize("engine", ["native", "auto"])
+def test_native_route_runs_and_matches_jax(engine):
+    """engine="native", and "auto" on a problem of at most 2¹⁶ elements,
+    run solve and solve_batch on the C++ host engine: the JAX package's
+    native route runs the same source, so the results are equal, returned
+    as tensors on the solver's device."""
+    A, Y, _ = compressive_problem(64, 128, 4, 3)
+    solver = pt.Homotopy(A, engine=engine, device="cpu")
+    theirs = ss.Homotopy(A, engine="native")
+    assert solver.explain()["engine"] == theirs.explain()["engine"] \
+        == "native"
+    x, rep = solver.solve(Y[0], TOL, MAX_IT)
+    xj, repj = theirs.solve(Y[0], TOL, MAX_IT)
+    assert isinstance(x, torch.Tensor) and isinstance(rep, pt.HomotopyReport)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(xj))
+    assert (rep.iter, rep.solution_error) == (repj.iter, repj.solution_error)
+    X, reps = solver.solve_batch(Y, TOL, MAX_IT)
+    Xj, repsj = theirs.solve_batch(Y, TOL, MAX_IT)
+    np.testing.assert_array_equal(X.numpy(), np.asarray(Xj))
+    np.testing.assert_array_equal(reps.iter.numpy(), np.asarray(repsj.iter))
+    np.testing.assert_array_equal(reps.solution_error.numpy(),
+                                  np.asarray(repsj.solution_error))
 
 
 def test_missing_gpu_is_an_error_not_a_cpu_run():
@@ -256,6 +280,21 @@ def test_no_jax_import_anywhere_in_the_port():
     files = sorted((ROOT / "sparse_solvers_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"sparse_solvers_tpu_torch/backend/native.py",
+            "sparse_solvers_tpu_torch/solvers/cosamp.py"} <= names
+    # nor does the port load the JAX package's binding or its library by
+    # path (no string outside a docstring names them): the port's host
+    # engine builds csrc/ itself
+    for path in files:
+        tree = ast.parse(path.read_text())
+        docs = {id(node.value) for node in ast.walk(tree)
+                if isinstance(node, ast.Expr)}
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs):
+                assert "backend/native" not in node.value, path
+                assert "libsparsesolvers_cpu" not in node.value, path
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -27,12 +27,18 @@ the triangular solves under "default" bit-equal to "highest" (TF32 pinned
 off), the Cholesky SPD flag per lane, and ``Irls`` (each mode, from one
 numpy QR) and ``IrlsCg`` on the card against the CPU: iterations and flags
 exact, X within 1e-4 (``Irls`` float32), 1e-5 (``IrlsCg`` float32), 1e-10
-(float64).
+(float64). ``Cosamp`` on the card against the CPU (rounds exact, X within
+1e-5, float64 1e-10, planted ties exactly), and the C++ host engine behind
+a card façade: CUDA tensors equal to the CPU façade's. A card façade's
+"auto" keeps small problems on the card; the CPU twins of small problems
+pin ``engine="jax"``, as a CPU façade's "auto" would send them to the
+host engine.
 """
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the port's tests need torch (pip install .[torch])")
 
 from _torch_cases import (compressive_problem, degenerate_case,
                           omp_insert_case, scan_case, scan_split_case,
@@ -240,7 +246,7 @@ def test_driver_on_card_matches_cpu_twins(dev):
     A, Y, Xt = compressive_problem(128, 256, 8, 16)
     out = {}
     for where in (dev, "cpu"):
-        X, rep = Homotopy(A, k_max=41, precision="high",
+        X, rep = Homotopy(A, k_max=41, precision="high", engine="jax",
                           device=where).solve_batch(Y, 0.01, 40)
         out[str(where)] = (X.cpu().numpy(), rep.iter.cpu().numpy())
     (Xg, ig), (Xc, ic) = out[str(dev)], out["cpu"]
@@ -275,7 +281,7 @@ def test_omp_on_card_matches_cpu_twins(dev, picks):
     out = {}
     for where in (dev, "cpu"):
         dispatch.reset_launches()
-        X, rep = Omp(A, precision="high", picks=picks,
+        X, rep = Omp(A, precision="high", picks=picks, engine="jax",
                      device=where).solve_batch(Y, 0.01, 24)
         out[str(where)] = (X.cpu().numpy(), rep.iter.cpu().numpy(),
                            dict(dispatch.launches))
@@ -405,7 +411,8 @@ def test_core_on_card_matches_cpu_twins(dev, dtype, atol):
     out = {}
     for where in (dev, "cpu"):
         dispatch.reset_launches()
-        fast = Homotopy(A, k_max=24, precision="high", device=where)
+        fast = Homotopy(A, k_max=24, precision="high", engine="jax",
+                        device=where)
         exact = Homotopy(A, mode="exact", precision="highest", device=where)
         x, r = fast.solve(Y[0], tol, 40)
         X, R = fast.solve_batch(Y, tol, 40)
@@ -433,8 +440,10 @@ def test_gram_free_drivers_on_card_match_cpu_twins(dev, family, picks):
 
     def make(where, **kw):
         if family == "homotopy":
-            return Homotopy(A, gram=False, device=where, **kw)
-        return Omp(A, gram=False, picks=picks, device=where, **kw)
+            return Homotopy(A, gram=False, engine="jax", device=where,
+                            **kw)
+        return Omp(A, gram=False, picks=picks, engine="jax", device=where,
+                   **kw)
 
     out = {}
     for where in (dev, "cpu"):
@@ -465,15 +474,16 @@ def test_omp_core_on_card_matches_cpu_twins(dev):
     from sparse_solvers_tpu_torch.ops import dispatch
     A, Y, _ = compressive_problem(128, 256, 6, 4, seed=2)
     runs = (
-        (lambda w: Omp(A, precision="high", device=w),
+        (lambda w: Omp(A, precision="high", engine="jax", device=w),
          lambda s: s.solve(Y[0], 1e-2, 40), 1e-5),
-        (lambda w: Omp(A, precision="high", picks=4, device=w),
+        (lambda w: Omp(A, precision="high", picks=4, engine="jax",
+                       device=w),
          lambda s: s.solve(Y[1], 1e-2, 40), 1e-5),
-        (lambda w: Omp(A, precision="high", device=w),
+        (lambda w: Omp(A, precision="high", engine="jax", device=w),
          lambda s: s.solve_batch(Y, 1e-2, 24), 1e-5),
         (lambda w: Omp(A, mode="exact", device=w),
          lambda s: s.solve(Y[2], 1e-2, 40), 1e-5),
-        (lambda w: Omp(A.astype(np.float64), device=w),
+        (lambda w: Omp(A.astype(np.float64), engine="jax", device=w),
          lambda s: s.solve(Y[3].astype(np.float64), 1e-6, 40), 1e-10))
     for make, run, atol in runs:
         out = {}
@@ -585,7 +595,7 @@ def test_irls_on_card_matches_cpu(dev, mode, monkeypatch):
         out = {}
         for where in (dev, "cpu"):
             dispatch.reset_launches()
-            s = Irls.from_numpy(A, Q=Q, R=R, device=where,
+            s = Irls.from_numpy(A, Q=Q, R=R, engine="jax", device=where,
                                 **IRLS_MODES[mode])
             X, rep = s.solve_batch(Y, 0.01, 50)
             out[str(where)] = (X.cpu().numpy(), rep.iter.tolist(),
@@ -608,9 +618,81 @@ def test_irls_cg_on_card_matches_cpu(dev, dtype, tol, atol):
                   for s, k in ((0, 5), (4, 3), (9, 8))])
     out = {}
     for where in (dev, "cpu"):
-        X, rep = IrlsCg(A, device=where).solve_batch(Y, tol, 80)
+        X, rep = IrlsCg(A, engine="jax", device=where).solve_batch(Y, tol,
+                                                                   80)
         out[str(where)] = (X.cpu().numpy(), rep.iter.tolist(),
                            rep.spd_failure.tolist())
     (Xg, ig, sg), (Xc, ic, sc) = out[str(dev)], out["cpu"]
     assert ig == ic and sg == sc
     np.testing.assert_allclose(Xg, Xc, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,tol,atol", [(np.float32, 1e-4, 1e-5),
+                                            (np.float64, 1e-9, 1e-10)])
+def test_cosamp_on_card_matches_cpu(dev, dtype, tol, atol):
+    """Cosamp on the card against the CPU port: a batch of 16 lanes and a
+    single solve, rounds exact, X and errors within atol; planted ties in
+    |c| and |b| (a permutation matrix) pick the same columns, exactly;
+    no hand kernel launches."""
+    from sparse_solvers_tpu_torch import Cosamp
+    from sparse_solvers_tpu_torch.ops import dispatch
+    A, Y, Xt = compressive_problem(128, 512, 8, 16, seed=11)
+    A, Y = A.astype(dtype), Y.astype(dtype)
+    P = np.eye(8)[:, np.random.RandomState(3).permutation(8)].astype(dtype)
+    ties = (P @ np.array([0, 1, 1, 0, 0, 1, 1, -1.0])).astype(dtype)
+    out = {}
+    for where in (dev, "cpu"):
+        dispatch.reset_launches()
+        X, rep = Cosamp(A, 8, device=where).solve_batch(Y, tol, 20)
+        x, r1 = Cosamp(A, 8, device=where).solve(Y[5], tol, 20)
+        xt, rt = Cosamp(P, 2, device=where).solve(ties, 1e-6, 10)
+        torch.cuda.synchronize()
+        assert not any(dispatch.launches.values())
+        assert X.device == torch.device(where)
+        out[str(where)] = (X.cpu().numpy(), rep.iter.tolist(),
+                           rep.solution_error.cpu().numpy(),
+                           x.cpu().numpy(), r1.iter, xt.cpu().numpy(),
+                           rt.iter)
+    g, c = out[str(dev)], out["cpu"]
+    assert g[1] == c[1] and g[4] == c[4] and g[6] == c[6] == 1
+    np.testing.assert_allclose(g[0], c[0], atol=atol)
+    np.testing.assert_allclose(g[2], c[2], atol=atol)
+    np.testing.assert_allclose(g[3], c[3], atol=atol)
+    np.testing.assert_array_equal(g[5], c[5])
+    top = np.argsort(-np.abs(g[0]), axis=1)[:, :8]
+    for lane in range(16):
+        assert set(top[lane].tolist()) == set(np.flatnonzero(Xt[lane]))
+
+
+def test_host_route_on_a_card_facade_returns_cuda_tensors(dev):
+    """engine="native" on a device="cuda" façade solves on the host engine
+    and returns tensors on the card, equal to the CPU façade's; "auto" at
+    m·n ≤ 2¹⁶ plans the torch route on the card and the host engine on
+    the CPU."""
+    from _torch_cases import cs_problem, irls_problem
+    from sparse_solvers_tpu_torch import Homotopy, Irls, IrlsCg, Omp
+    A, Y, _ = compressive_problem(64, 128, 4, 6, seed=2)
+    Ai, Yi = irls_problem(60, 30, 6, 1, seed=13, dtype=np.float32)
+    Ac, _, _ = cs_problem(32, 96, 4, seed=2, dtype=np.float32)
+    Yc = np.stack([Ac @ cs_problem(32, 96, 4, seed=s, dtype=np.float32)[1]
+                   for s in (3, 4)])
+    cases = ((lambda w, e: Homotopy(A, engine=e, device=w), Y, 1e-3),
+             (lambda w, e: Omp(A, engine=e, device=w), Y, 1e-4),
+             (lambda w, e: Omp(A, picks=3, engine=e, device=w), Y, 1e-4),
+             (lambda w, e: Irls(Ai, engine=e, device=w), Yi, 1e-3),
+             (lambda w, e: IrlsCg(Ac, engine=e, device=w), Yc, 1e-6))
+    for make, Ys, tol in cases:
+        assert make(dev, "auto").explain()["engine"] == "torch"
+        assert make("cpu", "auto").explain()["engine"] == "native"
+        out = {}
+        for where in (dev, "cpu"):
+            solver = make(where, "native")
+            x, rep = solver.solve(Ys[0], tol, 40)
+            X, reps = solver.solve_batch(Ys, tol, 40)
+            assert x.device == X.device == reps.iter.device \
+                == torch.device(where)
+            out[str(where)] = (x.cpu(), rep, X.cpu(),
+                               [t.cpu() for t in reps])
+        (xg, rg, Xg, Rg), (xc, rc, Xc, Rc) = out[str(dev)], out["cpu"]
+        assert torch.equal(xg, xc) and rg == rc and torch.equal(Xg, Xc)
+        assert all(torch.equal(a, b) for a, b in zip(Rg, Rc))

@@ -15,7 +15,8 @@ instead, as ``test_pallas.py`` holds the bf16 kernel.
 import ml_dtypes
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the port's tests need torch (pip install .[torch])")
 
 import jax.numpy as jnp
 from sparse_solvers_tpu.ops.pallas import kernels as JK

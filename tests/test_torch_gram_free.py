@@ -24,12 +24,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the port's tests need torch (pip install .[torch])")
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import sparse_solvers_tpu as ss
 import sparse_solvers_tpu_torch as pt
-from _torch_cases import compressive_problem
+from _torch_cases import TORCH_ROUTE, compressive_problem
 from sparse_solvers_tpu.ops import blas as jblas
 from sparse_solvers_tpu.solvers import homotopy_batch as JHB
 from sparse_solvers_tpu.solvers import omp_batch as JOB
@@ -203,7 +204,7 @@ def test_certified_resolve_stays_gram_free(monkeypatch, family):
         calls.append(1)
         return err + 1.0 if len(calls) == 1 else err
 
-    solver = cls(A, gram=False, device="cpu")
+    solver = cls(A, gram=False, **TORCH_ROUTE)
     plan = solver.explain(batch=16, max_iterations=max_it)
     assert plan["gram_free"] is True and plan["fused_q"] is True
     monkeypatch.setattr(seam, name, spoofed)
@@ -217,7 +218,7 @@ def test_certified_resolve_stays_gram_free(monkeypatch, family):
     assert sorted(solver._AT_cache) == [False, True]
     kept = dict(solver._AT_cache)
     Xc, rc = solver.solve_batch_on_device(torch.from_numpy(Y), 1e-2, max_it)
-    Xh, reph = cls(A, gram=False, precision="high", device="cpu").solve_batch(
+    Xh, reph = cls(A, gram=False, precision="high", **TORCH_ROUTE).solve_batch(
         Y, 1e-2, max_it)
     redone = rc.iter < max_it
     assert bool(redone.any())
@@ -236,7 +237,7 @@ def test_certified_gram_free_certificates_and_supports(family):
     each top-k support the truth."""
     A, Y, Xt = compressive_problem(128, 512, 8, 16, seed=3)
     cls = pt.Homotopy if family == "homotopy" else pt.Omp
-    X, rep = cls(A, gram=False, device="cpu").solve_batch(Y, 1e-2, 24)
+    X, rep = cls(A, gram=False, **TORCH_ROUTE).solve_batch(Y, 1e-2, 24)
     X, err = X.numpy().astype(np.float64), rep.solution_error.numpy()
     assert np.all(err <= 1e-2)
     A64 = A.astype(np.float64)
@@ -258,8 +259,8 @@ def test_auto_rule_above_the_limit_routes_gram_free(monkeypatch):
     monkeypatch.setattr(papi, "_GRAM_AUTO_BYTES", 256 * 256 * 4 - 1)
     monkeypatch.setattr(ss.api, "_GRAM_AUTO_BYTES", 256 * 256 * 4 - 1)
     monkeypatch.setenv("SS_BATCH_NATIVE", "1")
-    h, jh = pt.Homotopy(A, device="cpu"), ss.Homotopy(A, engine="jax")
-    o, jo = pt.Omp(A, device="cpu"), ss.Omp(A, engine="jax")
+    h, jh = pt.Homotopy(A, **TORCH_ROUTE), ss.Homotopy(A, engine="jax")
+    o, jo = pt.Omp(A, **TORCH_ROUTE), ss.Omp(A, engine="jax")
     assert not h._gram_enabled and not o._gram_enabled
     for mine, theirs, keys in (
             (h, jh, ("gram", "batch_native", "capacity_tiers")),
@@ -280,7 +281,7 @@ def test_omp_facade_gram_free_matches_jax(monkeypatch, picks):
     theirs = ss.Omp(A, engine="jax", gram=False, precision="high",
                     picks=picks)
     mine = pt.Omp(A, gram=False, precision="high", picks=picks,
-                  device="cpu")
+                  **TORCH_ROUTE)
     for key in ("corr", "gram_free", "formulation", "k_max", "picks"):
         assert mine.explain(batch=16, max_iterations=24).get(key) == \
             theirs.explain(batch=16, max_iterations=24).get(key), key
@@ -302,12 +303,12 @@ def test_update_column_drops_the_transposed_copy():
     Y2 = Y.copy()
     Y2[0] = 0.8 * col
     for cls in (pt.Homotopy, pt.Omp):
-        solver = cls(A, gram=False, precision="high", device="cpu")
+        solver = cls(A, gram=False, precision="high", **TORCH_ROUTE)
         solver.solve_batch(Y, 1e-2, 16)
         solver.update_column(11, col)
         assert not solver._AT_cache
         X, rep = solver.solve_batch(Y2, 1e-2, 16)
         Xb, repb = cls(A2, gram=False, precision="high",
-                       device="cpu").solve_batch(Y2, 1e-2, 16)
+                       **TORCH_ROUTE).solve_batch(Y2, 1e-2, 16)
         assert torch.equal(X, Xb) and torch.equal(rep.iter, repb.iter)
         assert int(np.argmax(np.abs(X[0].numpy()))) == 11

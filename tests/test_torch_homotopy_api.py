@@ -14,11 +14,12 @@ import warnings
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the port's tests need torch (pip install .[torch])")
 
 import sparse_solvers_tpu as ss
 import sparse_solvers_tpu_torch as pt
-from _torch_cases import compressive_problem
+from _torch_cases import TORCH_ROUTE, compressive_problem
 from sparse_solvers_tpu_torch import api as papi
 
 TOL = 1e-3
@@ -38,7 +39,7 @@ def _problem(m=64, n=128, k=5, batch=4, seed=3):
                                             ("exact", "highest")])
 def test_solve_matches_jax(mode, precision):
     A, Y, _ = _problem()
-    mine = pt.Homotopy(A, mode=mode, precision=precision, device="cpu")
+    mine = pt.Homotopy(A, mode=mode, precision=precision, **TORCH_ROUTE)
     theirs = _jax(A, mode=mode, precision=precision)
     for y in Y[:2]:
         x, rep = mine.solve(y, TOL, 60)
@@ -55,7 +56,7 @@ def test_float64_solve_both_modes_match_jax():
     A, y = A.astype(np.float64), Y[0].astype(np.float64)
     for mode in ("fast", "exact"):
         x, rep = pt.Homotopy(A, mode=mode, precision="highest",
-                             device="cpu").solve(y, 1e-9, 60)
+                             **TORCH_ROUTE).solve(y, 1e-9, 60)
         xj, repj = _jax(A, mode=mode, precision="highest").solve(y, 1e-9, 60)
         assert x.dtype == torch.float64 and rep.iter == repj.iter
         np.testing.assert_allclose(x.numpy(), np.asarray(xj), atol=1e-10)
@@ -64,7 +65,7 @@ def test_float64_solve_both_modes_match_jax():
 def test_exact_and_fast_agree():
     A, Y, _ = _problem(seed=7)
     outs = [pt.Homotopy(A, mode=mode, precision="highest",
-                        device="cpu").solve(Y[0], TOL, 60)
+                        **TORCH_ROUTE).solve(Y[0], TOL, 60)
             for mode in ("fast", "exact")]
     assert outs[0][1].iter == outs[1][1].iter
     np.testing.assert_allclose(outs[0][0].numpy(), outs[1][0].numpy(),
@@ -75,7 +76,7 @@ def test_sparse_regime_batch_matches_jax_vmapped_core():
     """batch·k_max < 2m: the port runs the per-lane core with the lanes
     stepped together, as the JAX package vmaps its core."""
     A, Y, _ = _problem(m=96, n=128, k=4, batch=3, seed=9)
-    mine = pt.Homotopy(A, k_max=24, precision="high", device="cpu")
+    mine = pt.Homotopy(A, k_max=24, precision="high", **TORCH_ROUTE)
     plan = mine.explain(batch=3, max_iterations=40)
     assert plan["sparse_matvec"] and not plan["batch_native"]
     assert plan["kernels"] == {}
@@ -92,7 +93,7 @@ def test_certified_solve_and_forced_resolve(monkeypatch):
     """"certified" single solves certify against a float64 recompute; a
     forced certificate failure re-solves at "high" (api.py:634-640)."""
     A, Y, Xt = _problem(seed=11)
-    solver = pt.Homotopy(A, device="cpu")
+    solver = pt.Homotopy(A, **TORCH_ROUTE)
     x, rep = solver.solve(Y[0], 1e-2, 60)
     assert rep.solution_error <= 1e-2
     c = (Y[0].astype(np.float64) - A.astype(np.float64)
@@ -112,14 +113,14 @@ def test_certified_solve_and_forced_resolve(monkeypatch):
                         lambda *a: torch.full((1,), float("nan")))
     xf, repf = solver.solve(Y[0], 1e-2, 60)
     assert calls == [None, "high"]
-    xh, reph = pt.Homotopy(A, precision="high", device="cpu").solve(
+    xh, reph = pt.Homotopy(A, precision="high", **TORCH_ROUTE).solve(
         Y[0], 1e-2, 60)
     assert torch.equal(xf, xh) and repf.iter == reph.iter
 
 
 def test_solve_on_device_returns_tensors():
     A, Y, _ = _problem()
-    solver = pt.Homotopy(A, precision="high", device="cpu")
+    solver = pt.Homotopy(A, precision="high", **TORCH_ROUTE)
     x, rep = solver.solve_on_device(torch.from_numpy(Y[1]), TOL, 60)
     x2, rep2 = solver.solve(Y[1], TOL, 60)
     assert x.shape == (128,) and rep.iter.dim() == 0
@@ -128,10 +129,10 @@ def test_solve_on_device_returns_tensors():
 
 def test_explain_core_routes():
     A, _, _ = _problem()
-    single = pt.Homotopy(A, device="cpu").explain()
+    single = pt.Homotopy(A, **TORCH_ROUTE).explain()
     assert single["formulation"] == "while-loop core"
     assert single["kernels"] == {} and single["path_precision"] == "default"
-    exact = pt.Homotopy(A, mode="exact", device="cpu").explain(batch=64)
+    exact = pt.Homotopy(A, mode="exact", **TORCH_ROUTE).explain(batch=64)
     assert exact["mode"] == "exact" and exact["gram"] is False
     assert exact["precision"] == "highest" and not exact["batch_native"]
     assert exact["formulation"].startswith("batched while-loop core")
@@ -139,7 +140,7 @@ def test_explain_core_routes():
     for key in ("mode", "precision", "gram", "k_max", "sparse_matvec",
                 "batch_native"):
         assert exact[key] == theirs[key], key
-    f64 = pt.Homotopy(A.astype(np.float64), device="cpu")
+    f64 = pt.Homotopy(A.astype(np.float64), **TORCH_ROUTE)
     assert f64.explain(batch=64)["batch_native"] is False
 
 
@@ -149,17 +150,17 @@ def test_gram_auto_size_follows_the_dtype(monkeypatch):
     and drops float64's."""
     A, _, _ = _problem()
     monkeypatch.setattr(papi, "_GRAM_AUTO_BYTES", 128 * 128 * 6)
-    assert pt.Homotopy(A, device="cpu")._gram_enabled
+    assert pt.Homotopy(A, **TORCH_ROUTE)._gram_enabled
     assert not pt.Homotopy(A.astype(np.float64),
-                           device="cpu")._gram_enabled
-    assert not pt.Homotopy(A, mode="exact", device="cpu")._gram_enabled
+                           **TORCH_ROUTE)._gram_enabled
+    assert not pt.Homotopy(A, mode="exact", **TORCH_ROUTE)._gram_enabled
 
 
 def test_gram_free_core_matches_gram_core(monkeypatch):
     A, Y, _ = _problem(m=96, n=128, k=4, batch=2, seed=13)
     X0, r0 = pt.Homotopy(A, gram=False, precision="high",
-                         device="cpu").solve_batch(Y, TOL, 40)
-    X1, r1 = pt.Homotopy(A, precision="high", device="cpu").solve_batch(
+                         **TORCH_ROUTE).solve_batch(Y, TOL, 40)
+    X1, r1 = pt.Homotopy(A, precision="high", **TORCH_ROUTE).solve_batch(
         Y, TOL, 40)
     assert torch.equal(r0.iter, r1.iter)
     np.testing.assert_allclose(X0.numpy(), X1.numpy(), atol=1e-5)
@@ -167,7 +168,7 @@ def test_gram_free_core_matches_gram_core(monkeypatch):
     # the JAX gram-free driver's iterations, X within 1e-5
     Y16 = np.repeat(Y, 8, axis=0)
     Xf, rf = pt.Homotopy(A, gram=False, precision="high",
-                         device="cpu").solve_batch(Y16, TOL, 40)
+                         **TORCH_ROUTE).solve_batch(Y16, TOL, 40)
     monkeypatch.setenv("SS_BATCH_NATIVE", "1")
     jax_solver = _jax(A, gram=False, precision="high")
     assert jax_solver.explain(batch=16, max_iterations=40)["gram_free"]
@@ -182,7 +183,7 @@ def test_empty_batch_on_every_route(kw):
     A, _, _ = _problem()
     kw = dict(kw)
     A = A.astype(kw.pop("dtype", np.float32))
-    solver = pt.Homotopy(A, device="cpu", **kw)
+    solver = pt.Homotopy(A, **TORCH_ROUTE, **kw)
     X, rep = solver.solve_batch(np.zeros((0, 64), A.dtype), TOL, 10)
     assert X.shape == (0, 128) and rep.iter.shape == (0,)
     hl, hv, hi, rep = solver.solve_path_batch(np.zeros((0, 64), A.dtype),
@@ -206,14 +207,14 @@ def test_update_column_matches_rebuild(family):
     x0[[5, 17, 40, 63]] = [1.0, 0.7, 0.5, 0.9]
     y = A2 @ x0
     cls = pt.Homotopy if family == "homotopy" else pt.Omp
-    s = cls(A, precision="high", device="cpu")
+    s = cls(A, precision="high", **TORCH_ROUTE)
     _ = s._G
     s.update_column(5, new_col)
     np.testing.assert_allclose(s._G.numpy(), A2.T @ A2, atol=1e-5)
     assert torch.equal(s._A, torch.from_numpy(A2))
     Y = np.stack([y] * 64)         # outside the sparse regime for both
     Xa, ra = s.solve_batch(Y, 1e-3, 60)
-    Xb, rb = cls(A2, precision="high", device="cpu").solve_batch(Y, 1e-3, 60)
+    Xb, rb = cls(A2, precision="high", **TORCH_ROUTE).solve_batch(Y, 1e-3, 60)
     assert torch.equal(ra.iter, rb.iter)
     np.testing.assert_allclose(Xa.numpy(), Xb.numpy(), atol=1e-5)
     if family == "homotopy":
@@ -240,7 +241,7 @@ def test_solve_path_matches_jax_and_keeps_kkt():
     KKT identity ‖Aᵀ(y−Ax_t)‖∞ = λ_t, the last row equal to solve(), and
     equal to the JAX package's path (test_api.py:316)."""
     A, y = _path_problem(3)
-    s = pt.Homotopy(A, device="cpu")
+    s = pt.Homotopy(A, **TORCH_ROUTE)
     lambdas, Xs, rep = s.solve_path(y, 1e-3, 60)
     assert isinstance(Xs, np.ndarray)
     assert len(lambdas) == rep.iter + 1 == Xs.shape[0]
@@ -250,7 +251,7 @@ def test_solve_path_matches_jax_and_keeps_kkt():
     for t in range(len(lambdas)):
         np.testing.assert_allclose(np.abs(A.T @ (y - A @ Xs[t])).max(),
                                    lambdas[t], rtol=1e-4, atol=1e-6)
-    xf, repf = pt.Homotopy(A, precision="high", device="cpu").solve(
+    xf, repf = pt.Homotopy(A, precision="high", **TORCH_ROUTE).solve(
         y, 1e-3, 60)
     assert repf.iter == rep.iter
     np.testing.assert_allclose(Xs[-1], xf.numpy(), atol=1e-6)
@@ -268,7 +269,7 @@ def test_solve_path_break_terminated():
     A = rng.randn(16, 3).astype(np.float32)
     A /= np.linalg.norm(A, axis=0)
     y = (-A[:, 0] + 0.4 * A[:, 1]).astype(np.float32)
-    s = pt.Homotopy(A, precision="high", device="cpu")
+    s = pt.Homotopy(A, precision="high", **TORCH_ROUTE)
     lambdas, Xs, rep = s.solve_path(y, 1e-3, 30)
     xf, repf = s.solve(y, 1e-3, 30)
     assert rep.iter == repf.iter
@@ -286,7 +287,7 @@ def test_solve_path_float64():
     x0 = np.zeros(96)
     x0[rng.choice(96, 3, replace=False)] = rng.uniform(0.4, 1, 3)
     y = A @ x0
-    lambdas, Xs, rep = pt.Homotopy(A, device="cpu").solve_path(y, 1e-9, 40)
+    lambdas, Xs, rep = pt.Homotopy(A, **TORCH_ROUTE).solve_path(y, 1e-9, 40)
     assert Xs.dtype == np.float64
     for t in range(len(lambdas)):
         np.testing.assert_allclose(np.abs(A.T @ (y - A @ Xs[t])).max(),
@@ -307,7 +308,7 @@ def test_solve_path_batch_matches_single_paths(b):
         x0 = np.zeros(n, np.float32)
         x0[rng.choice(n, k, replace=False)] = rng.uniform(0.3, 1, k)
         Y[i] = A @ x0
-    s = pt.Homotopy(A, k_max=24, device="cpu")
+    s = pt.Homotopy(A, k_max=24, **TORCH_ROUTE)
     assert s.explain(batch=b, max_iterations=40)["batch_native"] == (b == 24)
     hl, hv, hi, rep = s.solve_path_batch(Y, 1e-3, 40)
     assert hl.shape == (b, 41) and hv.shape == hi.shape == (b, 41, 24)
@@ -325,7 +326,7 @@ def test_lasso_at_and_batch():
     clamps at both ends; lasso_at_batch equals it lane by lane
     (test_api.py:413-470), and both equal the JAX package's."""
     A, y = _path_problem(12)
-    s = pt.Homotopy(A, device="cpu")
+    s = pt.Homotopy(A, **TORCH_ROUTE)
     lambdas, Xs, rep = s.solve_path(y, 1e-3, 60)
     for t in (0, len(lambdas) // 2, len(lambdas) - 2):
         lam = 0.5 * (lambdas[t] + lambdas[t + 1])
@@ -372,22 +373,22 @@ def test_row_and_column_subsets_and_transpose():
     A = rng.rand(10, 5) * 0.1
     A_sub = A[:5, :]
     A_sub[:, 0] = 1
-    x, _ = pt.Homotopy(A_sub, device="cpu").solve(np.ones(5))
+    x, _ = pt.Homotopy(A_sub, **TORCH_ROUTE).solve(np.ones(5))
     assert x.shape == (5,) and int(torch.count_nonzero(x)) == 1
     A = rng.rand(10, 5) * 0.1
     A[:, 0] = A[:, 3] = 1
-    x, _ = pt.Homotopy(A[:, 2:], device="cpu").solve(np.ones(10))
+    x, _ = pt.Homotopy(A[:, 2:], **TORCH_ROUTE).solve(np.ones(10))
     assert x.shape == (3,) and int(torch.argmax(x)) == 1
     A = rng.rand(5, 10) * 0.1
     A[3, :] = 1
-    x, _ = pt.Homotopy(A.T, device="cpu").solve(np.ones(10))
+    x, _ = pt.Homotopy(A.T, **TORCH_ROUTE).solve(np.ones(10))
     assert x.shape == (5,) and int(torch.argmax(x)) == 3
 
 
 def test_length_mismatch_and_zero_budget():
     """test_api.py:88-110: a signal of the wrong length and a budget
     below one iteration are ValueErrors on every entry."""
-    solver = pt.Homotopy(np.identity(5, np.float32), device="cpu")
+    solver = pt.Homotopy(np.identity(5, np.float32), **TORCH_ROUTE)
     with pytest.raises(ValueError, match="length 5"):
         solver.solve(np.ones(4, np.float32))
     with pytest.raises(ValueError, match="Expected 1"):
@@ -410,6 +411,6 @@ def test_quick_start_flow():
     A /= np.linalg.norm(A, axis=0)
     x0 = np.zeros(64, np.float32)
     x0[[3, 17, 40]] = 1.0
-    x, rep = pt.Homotopy(A, device="cpu").solve(A @ x0, 0.01, 100)
+    x, rep = pt.Homotopy(A, **TORCH_ROUTE).solve(A @ x0, 0.01, 100)
     assert rep.solution_error <= 0.01
     assert set(np.argsort(-np.abs(x.numpy()))[:3]) == {3, 17, 40}

@@ -15,7 +15,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the port's tests need torch (pip install .[torch])")
 
 from _torch_cases import compressive_problem
 from sparse_solvers_tpu.ops import blas as jblas

@@ -9,7 +9,8 @@ X within 1e-5) and float64 (equal iterations, X within 1e-10).
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the port's tests need torch (pip install .[torch])")
 
 import jax
 import jax.numpy as jnp

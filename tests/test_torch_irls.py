@@ -25,11 +25,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the port's tests need torch (pip install .[torch])")
 
 import sparse_solvers_tpu as ss
 import sparse_solvers_tpu_torch as pt
-from _torch_cases import competing_pair, irls_problem
+from _torch_cases import TORCH_ROUTE, competing_pair, cs_problem, irls_problem
 from sparse_solvers_tpu.oracle import irls as oracle
 from sparse_solvers_tpu.ops import blas as jblas
 from sparse_solvers_tpu.solvers import irls as JI
@@ -180,7 +181,7 @@ def test_core_validation_matches_jax():
 def _pair(A, **kw):
     """(port Irls on the CPU from JAX's factors, JAX Irls)."""
     Q, R, Rinv = _jax_factor(A)
-    return (pt.Irls.from_numpy(A, Q=Q, R=R, r_inv=Rinv, device="cpu", **kw),
+    return (pt.Irls.from_numpy(A, Q=Q, R=R, r_inv=Rinv, **TORCH_ROUTE, **kw),
             ss.Irls(A, engine="jax", **kw))
 
 
@@ -229,7 +230,7 @@ def test_facade_matches_oracle(shape, k):
     x_true[rng.choice(n, k, replace=False)] = rng.uniform(0.2, 1.0, k)
     y = A @ x_true
     xo, it_o, eps_o, spd_o = oracle.solve(A, y, 0.001, 100)
-    x, rep = pt.Irls(A, device="cpu").solve(y, tolerance=0.001,
+    x, rep = pt.Irls(A, **TORCH_ROUTE).solve(y, tolerance=0.001,
                                             max_iterations=100)
     assert rep.iter == it_o and rep.spd_failure == spd_o
     np.testing.assert_allclose(rep.solution_error, eps_o, atol=1e-9)
@@ -244,7 +245,7 @@ def test_smoke_identity(dtype):
     """A = I₅: every one-hot recovered exactly in one iteration with eps
     0 (tests/test_api.py's and tests/test_solvers.py's smoke)."""
     A = np.identity(5, dtype=dtype)
-    solver = pt.Irls(A, device="cpu")
+    solver = pt.Irls(A, **TORCH_ROUTE)
     for j in range(5):
         x, rep = solver.solve(A[j], tolerance=0.001, max_iterations=5)
         assert rep.iter == 1 and rep.solution_error == 0.0
@@ -336,7 +337,7 @@ def test_gemm_newton_runs_at_highest_under_default(monkeypatch):
     under "default" the gemm and trsm routes still agree (only Qᵀy, the
     one product of the fast loop, is rounded)."""
     A, Y = irls_problem(60, 30, 8, 3, seed=13, dtype=np.float32)
-    solver = pt.Irls(A, precision="default", device="cpu")
+    solver = pt.Irls(A, precision="default", **TORCH_ROUTE)
     monkeypatch.setenv("SS_IRLS_GEMM", "1")
     Xg, rg = solver.solve_batch(Y, tolerance=0.01, max_iterations=50)
     monkeypatch.setenv("SS_IRLS_GEMM", "0")
@@ -353,11 +354,11 @@ def test_precision_knob():
     rng = np.random.RandomState(0)
     A = rng.randn(64, 32).astype(np.float32)
     y = (A @ np.eye(32, dtype=np.float32)[3]).astype(np.float32)
-    x0, r0 = pt.Irls(A, device="cpu").solve(y, tolerance=0.1)
-    x1, r1 = pt.Irls(A, precision="high", device="cpu").solve(
+    x0, r0 = pt.Irls(A, **TORCH_ROUTE).solve(y, tolerance=0.1)
+    x1, r1 = pt.Irls(A, precision="high", **TORCH_ROUTE).solve(
         y, tolerance=0.1)
     assert torch.equal(x0, x1) and r0.iter == r1.iter
-    x2, _ = pt.Irls(A, precision="default", device="cpu").solve(
+    x2, _ = pt.Irls(A, precision="default", **TORCH_ROUTE).solve(
         y, tolerance=0.1)
     assert int(x2.argmax()) == int(x0.argmax()) == 3
     with pytest.raises(ValueError) as mine:
@@ -399,7 +400,7 @@ def test_underdetermined_rejected_with_jax_message():
 def test_explain_has_jax_keys(monkeypatch, batch, stabilized):
     monkeypatch.setenv("SS_IRLS_GEMM", "1")
     A = np.random.RandomState(2).randn(16, 8).astype(np.float32)
-    mine = pt.Irls(A, stabilized=stabilized, device="cpu")
+    mine = pt.Irls(A, stabilized=stabilized, **TORCH_ROUTE)
     theirs = ss.Irls(A, engine="jax", stabilized=stabilized)
     plan, jplan = mine.explain(batch=batch), theirs.explain(batch=batch)
     assert set(jplan) <= set(plan)
@@ -412,7 +413,7 @@ def test_explain_has_jax_keys(monkeypatch, batch, stabilized):
 
 def test_empty_batch():
     A = np.random.RandomState(0).randn(16, 8).astype(np.float32)
-    X, rep = pt.Irls(A, device="cpu").solve_batch(np.zeros((0, 16)),
+    X, rep = pt.Irls(A, **TORCH_ROUTE).solve_batch(np.zeros((0, 16)),
                                                   tolerance=1e-3)
     Xj, repj = ss.Irls(A, engine="jax").solve_batch(
         np.zeros((0, 16), np.float32), tolerance=1e-3)
@@ -424,7 +425,7 @@ def test_empty_batch():
 
 def test_on_device_entries_and_max_iterations():
     A, Y = irls_problem(40, 25, 3, 3, seed=5, dtype=np.float32)
-    solver = pt.Irls(A, device="cpu")
+    solver = pt.Irls(A, **TORCH_ROUTE)
     Yt = torch.from_numpy(Y)
     X, rep = solver.solve_batch_on_device(Yt, 0.01, 30)
     Xb, repb = solver.solve_batch(Y, 0.01, 30)
@@ -443,7 +444,7 @@ def test_on_device_entries_and_max_iterations():
 def test_from_numpy_takes_the_given_factor():
     A, Y = irls_problem(40, 25, 2, 3, seed=5, dtype=np.float32)
     Q, R, Rinv = _jax_factor(A)
-    solver = pt.Irls.from_numpy(A, Q=Q, R=R, r_inv=Rinv, device="cpu")
+    solver = pt.Irls.from_numpy(A, Q=Q, R=R, r_inv=Rinv, **TORCH_ROUTE)
     assert solver.explain()["qr_cached"]
     np.testing.assert_array_equal(solver._qr()[0].numpy(), Q)
     np.testing.assert_array_equal(solver._Rinv.numpy(), Rinv)
@@ -455,7 +456,7 @@ def test_from_numpy_takes_the_given_factor():
 
 def test_stabilized_sustains_where_reference_recurrence_bails():
     A, Y, leaders = competing_pair(768, 256, 8)
-    Xr, rr = pt.Irls(A, device="cpu").solve_batch(Y, tolerance=0.3,
+    Xr, rr = pt.Irls(A, **TORCH_ROUTE).solve_batch(Y, tolerance=0.3,
                                                   max_iterations=60)
     assert rr.spd_failure.all()
     assert int(rr.iter.max()) <= 6
@@ -473,7 +474,7 @@ def test_stabilized_sustains_where_reference_recurrence_bails():
 
 def test_stabilized_matches_oracle_f64():
     A, Y, _ = competing_pair(96, 48, 4, dtype=np.float64)
-    s = pt.Irls(A, stabilized=True, device="cpu")
+    s = pt.Irls(A, stabilized=True, **TORCH_ROUTE)
     for i in range(Y.shape[0]):
         x, rep = s.solve(Y[i], tolerance=0.25, max_iterations=60)
         xo, it_o, eps_o, spd_o = oracle.solve(A, Y[i], 0.25,
@@ -486,7 +487,7 @@ def test_stabilized_matches_oracle_f64():
 
 def test_stabilized_identity_smoke_unchanged():
     A = np.eye(5, dtype=np.float32)
-    x, rep = pt.Irls(A, stabilized=True, device="cpu").solve(A[:, 2],
+    x, rep = pt.Irls(A, stabilized=True, **TORCH_ROUTE).solve(A[:, 2],
                                                              tolerance=0.1)
     assert rep.iter == 1 and rep.solution_error == 0.0
     np.testing.assert_array_equal(x.numpy(), A[:, 2])
@@ -497,18 +498,15 @@ def test_stabilized_one_sparse_noisy_matches_reference_mode():
     A = rng.randn(128, 64).astype(np.float32)
     A /= np.linalg.norm(A, axis=0)
     y = (A[:, 7] + rng.uniform(0, 0.05, 128)).astype(np.float32)
-    xr, _ = pt.Irls(A, device="cpu").solve(y, tolerance=0.1)
-    xs, _ = pt.Irls(A, stabilized=True, device="cpu").solve(y, tolerance=0.1)
+    xr, _ = pt.Irls(A, **TORCH_ROUTE).solve(y, tolerance=0.1)
+    xs, _ = pt.Irls(A, stabilized=True, **TORCH_ROUTE).solve(y, tolerance=0.1)
     assert int(xr.argmax()) == int(xs.argmax()) == 7
 
 
 # --- routes the port does not have yet, and the device rule ---------------
 
 UNPORTED = {
-    "irls_native": (lambda A: pt.Irls(A, engine="native", device="cpu"), 4),
     "irls_mesh": (lambda A: pt.Irls(A, mesh=object(), device="cpu"), 10),
-    "irls_cg_native": (lambda A: pt.IrlsCg(A.T, engine="native",
-                                           device="cpu"), 4),
     "irls_cg_mesh": (lambda A: pt.IrlsCg(A.T, mesh=object(), device="cpu"),
                      10),
 }
@@ -520,6 +518,40 @@ def test_unported_routes_raise(route):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md Queue 1 item {item}$"):
         make(np.ones((8, 4), np.float32))
+
+
+@pytest.mark.parametrize("family,engine", [("irls", "native"),
+                                           ("irls", "auto"),
+                                           ("irls_cg", "native"),
+                                           ("irls_cg", "auto")])
+def test_native_route_runs_and_matches_jax(family, engine):
+    """engine="native", and "auto" at m·n ≤ 2¹⁶, run Irls (over the host
+    engine's own QR) and IrlsCg on the C++ host engine: equal to the JAX
+    package's native route, which runs the same source."""
+    if family == "irls":
+        A, Y = irls_problem(40, 25, 3, 1, seed=5, dtype=np.float32)
+        mine = pt.Irls(A, engine=engine, device="cpu")
+        theirs = ss.Irls(A, engine="native")
+        tol, max_it = 1e-3, 50
+    else:
+        A, _, _ = cs_problem(32, 96, 4, seed=2, dtype=np.float32)
+        Y = np.stack([A @ cs_problem(32, 96, 4, seed=s,
+                                     dtype=np.float32)[1] for s in (3, 4)])
+        mine = pt.IrlsCg(A, engine=engine, device="cpu")
+        theirs = ss.IrlsCg(A, engine="native")
+        tol, max_it = 1e-6, 60
+    assert mine.explain() == dict(theirs.explain(), device="cpu")
+    x, rep = mine.solve(Y[0], tol, max_it)
+    xj, repj = theirs.solve(Y[0], tol, max_it)
+    assert isinstance(x, torch.Tensor) and isinstance(rep, pt.IrlsReport)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(xj))
+    assert (rep.iter, rep.solution_error, rep.spd_failure) == (
+        repj.iter, repj.solution_error, repj.spd_failure)
+    X, reps = mine.solve_batch(Y, tol, max_it)
+    Xj, repsj = theirs.solve_batch(Y, tol, max_it)
+    np.testing.assert_array_equal(X.numpy(), np.asarray(Xj))
+    for got, want in zip(reps, repsj):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("family", ["irls", "irls_cg"])

@@ -19,11 +19,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the port's tests need torch (pip install .[torch])")
 
 import sparse_solvers_tpu as ss
 import sparse_solvers_tpu_torch as pt
-from _torch_cases import cs_problem
+from _torch_cases import TORCH_ROUTE, cs_problem
 from sparse_solvers_tpu.oracle import irls_cg as oracle
 from sparse_solvers_tpu.solvers import irls_cg as JCG
 from sparse_solvers_tpu_torch.solvers import irls_cg as PCG
@@ -33,7 +34,7 @@ pytestmark = pytest.mark.filterwarnings(
 
 
 def _solve_both(A, y, tol, max_it, **kw):
-    x, rep = pt.IrlsCg(A, device="cpu", **kw).solve(y, tolerance=tol,
+    x, rep = pt.IrlsCg(A, **TORCH_ROUTE, **kw).solve(y, tolerance=tol,
                                                     max_iterations=max_it)
     xj, repj = ss.IrlsCg(A, engine="jax", **kw).solve(
         y, tolerance=tol, max_iterations=max_it)
@@ -55,7 +56,7 @@ def test_recovers_sparse_signal(dtype, atol):
 
 def test_first_iterate_is_least_norm_solution():
     A, _, y = cs_problem(20, 50, 3, seed=1)
-    x, rep = pt.IrlsCg(A, device="cpu").solve(y, tolerance=np.inf,
+    x, rep = pt.IrlsCg(A, **TORCH_ROUTE).solve(y, tolerance=np.inf,
                                               max_iterations=1)
     assert rep.iter == 1
     np.testing.assert_allclose(x.numpy(), np.linalg.pinv(A) @ y, atol=1e-8)
@@ -90,7 +91,7 @@ def test_cg_matches_direct_solve():
 
 def test_solution_satisfies_constraint_and_l1_optimality():
     A, x_true, y = cs_problem(48, 200, 4, seed=3)
-    x, _ = pt.IrlsCg(A, device="cpu").solve(y, tolerance=1e-9,
+    x, _ = pt.IrlsCg(A, **TORCH_ROUTE).solve(y, tolerance=1e-9,
                                             max_iterations=100)
     x = x.numpy()
     np.testing.assert_allclose(A @ x, y, atol=1e-6)
@@ -116,7 +117,7 @@ def test_batch_matches_sequential():
     against JAX's vmapped solve (every lane spends the 60-step budget
     here: X within 1e-8 of JAX's)."""
     A, Y = _batch_problem()
-    solver = pt.IrlsCg(A, device="cpu")
+    solver = pt.IrlsCg(A, **TORCH_ROUTE)
     X, rep = solver.solve_batch(Y, tolerance=1e-8, max_iterations=60)
     for i in range(4):
         xi, ri = solver.solve(Y[i], tolerance=1e-8, max_iterations=60)
@@ -138,7 +139,7 @@ def test_lanes_stop_cg_apart_and_one_breaks_down():
     Y = np.stack([A @ cs_problem(32, 96, k, seed=20 + k,
                                  dtype=np.float32)[1] for k in (1, 3, 6)])
     Y = np.concatenate([Y, 1e15 * Y[:1]]).astype(np.float32)
-    X, rep = pt.IrlsCg(A, device="cpu").solve_batch(Y, tolerance=1e-3,
+    X, rep = pt.IrlsCg(A, **TORCH_ROUTE).solve_batch(Y, tolerance=1e-3,
                                                     max_iterations=40)
     Xj, repj = ss.IrlsCg(A, engine="jax").solve_batch(
         Y, tolerance=1e-3, max_iterations=40)
@@ -266,13 +267,13 @@ def test_cg_overflow_breaks_instead_of_nan():
 
 
 def test_explain():
-    plan = pt.IrlsCg(np.ones((4, 8)), device="cpu").explain()
+    plan = pt.IrlsCg(np.ones((4, 8)), **TORCH_ROUTE).explain()
     jplan = ss.IrlsCg(np.ones((4, 8)), engine="jax").explain()
     assert set(jplan) <= set(plan)
     for key in ("backend", "mode", "precision", "p", "factorization_free"):
         assert plan[key] == jplan[key], key
     assert plan["engine"] == "torch" and plan["kernels"] == {}
-    assert "batched" in pt.IrlsCg(np.ones((4, 8)), device="cpu").explain(
+    assert "batched" in pt.IrlsCg(np.ones((4, 8)), **TORCH_ROUTE).explain(
         batch=3)["formulation"]
 
 
@@ -280,7 +281,7 @@ def test_on_device_entries():
     """tests/test_irls_cg.py::test_jit_composable's serving shape: device
     tensors in, (x, report tensors) out."""
     A, x_true, y = cs_problem(48, 160, 4, seed=7)
-    solver = pt.IrlsCg(A, device="cpu")
+    solver = pt.IrlsCg(A, **TORCH_ROUTE)
     x, rep = solver.solve_on_device(torch.from_numpy(y), 1e-8,
                                     max_iterations=60)
     np.testing.assert_allclose(x.numpy(), x_true, atol=1e-5)
@@ -298,14 +299,14 @@ def test_view_semantics():
     big[:, ::2] = A
     Av = big[:, ::2]
     assert not Av.flags["C_CONTIGUOUS"]
-    x_ref, rep_ref = pt.IrlsCg(A, device="cpu").solve(y, tolerance=1e-8,
+    x_ref, rep_ref = pt.IrlsCg(A, **TORCH_ROUTE).solve(y, tolerance=1e-8,
                                                       max_iterations=60)
-    x_v, rep_v = pt.IrlsCg(Av, device="cpu").solve(y, tolerance=1e-8,
+    x_v, rep_v = pt.IrlsCg(Av, **TORCH_ROUTE).solve(y, tolerance=1e-8,
                                                    max_iterations=60)
     assert torch.equal(x_v, x_ref) and rep_v.iter == rep_ref.iter
     At = np.ascontiguousarray(A.T).T
     assert not At.flags["C_CONTIGUOUS"]
-    x_t, _ = pt.IrlsCg(At, device="cpu").solve(y, tolerance=1e-8,
+    x_t, _ = pt.IrlsCg(At, **TORCH_ROUTE).solve(y, tolerance=1e-8,
                                                max_iterations=60)
     assert torch.equal(x_t, x_ref)
 
@@ -318,7 +319,7 @@ def test_update_column():
     m, n = 24, 96
     A = rng.randn(m, n).astype(np.float32)
     A /= np.linalg.norm(A, axis=0)
-    s = pt.IrlsCg(A, device="cpu")
+    s = pt.IrlsCg(A, **TORCH_ROUTE)
     new_col = rng.randn(m).astype(np.float32)
     new_col /= np.linalg.norm(new_col)
     s.update_column(7, new_col)
@@ -328,7 +329,7 @@ def test_update_column():
     x0[[7, 30]] = [1.0, 0.6]
     y = A2 @ x0
     xa, ra = s.solve(y, tolerance=1e-5, max_iterations=60)
-    xb, rb = pt.IrlsCg(A2, device="cpu").solve(y, tolerance=1e-5,
+    xb, rb = pt.IrlsCg(A2, **TORCH_ROUTE).solve(y, tolerance=1e-5,
                                                max_iterations=60)
     assert ra.iter == rb.iter
     assert torch.equal(xa, xb)
@@ -361,7 +362,7 @@ def test_matches_oracle():
         y = A @ xt
         xo, ito, epso, broke_o = oracle.solve(A, y, 1e-8, 60)
         assert not broke_o
-        x, rep = pt.IrlsCg(A, cg_tolerance=1e-12, device="cpu").solve(
+        x, rep = pt.IrlsCg(A, cg_tolerance=1e-12, **TORCH_ROUTE).solve(
             y, tolerance=1e-8, max_iterations=60)
         xj, repj = ss.IrlsCg(A, cg_tolerance=1e-12, engine="jax").solve(
             y, tolerance=1e-8, max_iterations=60)

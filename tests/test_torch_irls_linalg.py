@@ -15,7 +15,8 @@ factor is not compared.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the port's tests need torch (pip install .[torch])")
 
 from sparse_solvers_tpu.linalg import cholesky as jchol
 from sparse_solvers_tpu.linalg.qr import QRDecomposition as JQR

@@ -14,7 +14,8 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the port's tests need torch (pip install .[torch])")
 
 from sparse_solvers_tpu_torch.ops.cuda import kernels as K
 

@@ -18,7 +18,8 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the port's tests need torch (pip install .[torch])")
 
 from _torch_cases import omp_insert_case, scan_split_case
 from sparse_solvers_tpu_torch.ops import dispatch

@@ -15,7 +15,8 @@ Pallas kernel in interpret mode and through the port:
 import numpy as np
 import jax.numpy as jnp
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the port's tests need torch (pip install .[torch])")
 
 from _torch_cases import degenerate_case, scan_case, transition_case
 from sparse_solvers_tpu.ops.pallas import kernels as JK

@@ -10,7 +10,8 @@ dtype's rounding for the inverse).
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the port's tests need torch (pip install .[torch])")
 
 import jax.numpy as jnp
 from sparse_solvers_tpu.linalg import active_set as jaset

@@ -21,11 +21,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the port's tests need torch (pip install .[torch])")
 
 import sparse_solvers_tpu as ss
 import sparse_solvers_tpu_torch as pt
-from _torch_cases import compressive_problem, omp_insert_case
+from _torch_cases import TORCH_ROUTE, compressive_problem, omp_insert_case
 from sparse_solvers_tpu.ops import blas as jblas
 from sparse_solvers_tpu.ops.pallas import omp_insert as JO
 from sparse_solvers_tpu.solvers import homotopy_batch as JHB
@@ -274,7 +275,7 @@ def test_degenerate_duplicate_columns_break_finite(monkeypatch):
     assert js.explain(batch=4, max_iterations=40)["corr"] == "driver"
     Xj, rj = js.solve_batch(Y, tolerance=1e-7, max_iterations=40)
     port = pt.Omp.from_numpy(A, np.array(js._G), precision="high",
-                             device="cpu")
+                             **TORCH_ROUTE)
     X, rep = port.solve_batch(Y, tolerance=1e-7, max_iterations=40)
     assert np.isfinite(X.numpy()).all()
     assert np.isfinite(rep.solution_error.numpy()).all()
@@ -304,7 +305,7 @@ def test_facade_high_matches_jax(problem, monkeypatch, picks):
     js = _jax_omp_solver(monkeypatch, A, precision="high", picks=picks)
     Xj, rj = js.solve_batch(Y, TOL, 24)
     port = pt.Omp.from_numpy(A, np.array(js._G), precision="high",
-                             picks=picks, device="cpu")
+                             picks=picks, **TORCH_ROUTE)
     X, rep = port.solve_batch(Y, TOL, 24)
     np.testing.assert_array_equal(rep.iter.numpy(), np.asarray(rj.iter))
     np.testing.assert_allclose(X.numpy(), np.asarray(Xj), atol=1e-5)
@@ -320,7 +321,7 @@ def test_certified_certificates_and_supports(problem, monkeypatch, picks):
     A, Y, Xt = problem
     Y = Y + 4e-4 * np.random.RandomState(6).randn(*Y.shape).astype(
         np.float32)
-    X, rep = pt.Omp(A, picks=picks, device="cpu").solve_batch(Y, TOL, 24)
+    X, rep = pt.Omp(A, picks=picks, **TORCH_ROUTE).solve_batch(Y, TOL, 24)
     X, err = X.numpy(), rep.solution_error.numpy()
     assert np.all(err <= TOL)
     r = Y.astype(np.float64) - X.astype(np.float64) @ A.T.astype(np.float64)
@@ -354,7 +355,7 @@ def test_certified_resolve_merge(problem, monkeypatch, dense):
         return err
 
     def run(precision):
-        out = pt.Omp(A, precision=precision, device="cpu").solve_batch(
+        out = pt.Omp(A, precision=precision, **TORCH_ROUTE).solve_batch(
             Y, TOL, 24, dense=dense)
         X = out[0] if dense else pt.densify_batch(out[0], out[1], 256)
         return X, out[-1]
@@ -383,7 +384,7 @@ def test_certified_reports_the_driver_certificate(problem, monkeypatch):
         raise AssertionError("_certified_l2_error on the driver route")
 
     monkeypatch.setattr(papi, "_certified_l2_error", refuse)
-    solver = pt.Omp(A, device="cpu")
+    solver = pt.Omp(A, **TORCH_ROUTE)
     X, rep = solver.solve_batch(Y, TOL, 24)
     Xd, repd = solver.solve_batch_on_device(torch.from_numpy(Y), TOL, 24)
     assert np.all(rep.solution_error.numpy() <= TOL)   # no lane re-solved
@@ -403,7 +404,7 @@ def test_exhausted_lanes_are_not_resolved(problem, monkeypatch):
         return real(self, *a, **kw)
 
     monkeypatch.setattr(papi.Omp, "_fn", counting)
-    X, rep = pt.Omp(A, k_max=24, device="cpu").solve_batch(Y, 1e-30, 4)
+    X, rep = pt.Omp(A, k_max=24, **TORCH_ROUTE).solve_batch(Y, 1e-30, 4)
     assert np.all(rep.iter.numpy() == 4)
     assert not np.any(rep.solution_error.numpy() <= 1e-30)
     assert calls == [None]
@@ -411,7 +412,7 @@ def test_exhausted_lanes_are_not_resolved(problem, monkeypatch):
 
 def test_on_device_entry_and_compact_output(problem):
     A, Y, _ = problem
-    solver = pt.Omp(A, precision="high", device="cpu")
+    solver = pt.Omp(A, precision="high", **TORCH_ROUTE)
     X, rep = solver.solve_batch(Y, TOL, 24)
     vals, idxs, repc = solver.solve_batch(Y, TOL, 24, dense=False)
     assert vals.shape == idxs.shape == (16, 24)
@@ -428,7 +429,7 @@ def test_on_device_entry_and_compact_output(problem):
 @pytest.mark.parametrize("picks", [1, 3])
 def test_explain_shared_keys_match_jax(problem, monkeypatch, prec, picks):
     A, _, _ = problem
-    mine = pt.Omp(A, precision=prec, picks=picks, device="cpu").explain(
+    mine = pt.Omp(A, precision=prec, picks=picks, **TORCH_ROUTE).explain(
         batch=16, max_iterations=24)
     theirs = _jax_omp_solver(monkeypatch, A, precision=prec,
                              picks=picks).explain(batch=16,
@@ -469,7 +470,6 @@ def test_solve_batch_argument_errors():
 
 
 UNPORTED = {
-    "engine_native": lambda A: pt.Omp(A, engine="native", device="cpu"),
     "mesh": lambda A: pt.Omp(A, mesh=object(), device="cpu"),
 }
 
@@ -478,5 +478,32 @@ UNPORTED = {
 def test_unported_routes_raise(route):
     A, _, _ = compressive_problem(64, 128, 4, 1)
     with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md Queue 1 item (4|10)$"):
+                       match=r"ROADMAP.md Queue 1 item 10$"):
         UNPORTED[route](A)
+
+
+@pytest.mark.parametrize("engine,picks", [("native", 1), ("native", 4),
+                                          ("auto", 1)])
+def test_native_route_runs_and_matches_jax(engine, picks):
+    """The host engine through the port's façade equals the JAX package's
+    native route (the same C++ source): solve, solve_batch and its compact
+    form, with k_max in the plan."""
+    A, Y, _ = compressive_problem(64, 128, 4, 3)
+    solver = pt.Omp(A, engine=engine, picks=picks, device="cpu")
+    theirs = ss.Omp(A, engine="native", picks=picks)
+    got, want = solver.explain(max_iterations=24), theirs.explain(
+        max_iterations=24)
+    assert got["engine"] == "native" and got["k_max"] == want["k_max"]
+    x, rep = solver.solve(Y[0], 1e-4, 24)
+    xj, repj = theirs.solve(Y[0], 1e-4, 24)
+    assert isinstance(rep, pt.OmpReport)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(xj))
+    assert (rep.iter, rep.solution_error) == (repj.iter, repj.solution_error)
+    X, reps = solver.solve_batch(Y, 1e-4, 24)
+    Xj, repsj = theirs.solve_batch(Y, 1e-4, 24)
+    np.testing.assert_array_equal(X.numpy(), np.asarray(Xj))
+    np.testing.assert_array_equal(reps.iter.numpy(), np.asarray(repsj.iter))
+    vals, idxs, _ = solver.solve_batch(Y, 1e-4, 24, dense=False)
+    jv, ji, _ = theirs.solve_batch(Y, 1e-4, 24, dense=False)
+    np.testing.assert_array_equal(idxs.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))

@@ -25,11 +25,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip(
+    "torch", reason="the port's tests need torch (pip install .[torch])")
 
 import sparse_solvers_tpu as ss
 import sparse_solvers_tpu_torch as pt
-from _torch_cases import compressive_problem
+from _torch_cases import TORCH_ROUTE, compressive_problem
 from sparse_solvers_tpu.ops import blas as jblas
 from sparse_solvers_tpu.ops.operators import DenseOperator as JDense
 from sparse_solvers_tpu.oracle import omp as oracle
@@ -250,7 +251,7 @@ def test_solve_matches_jax(kw):
     theirs = _jax(A, **kw)
     xj, rj = theirs.solve(y, 1e-3, 60)
     G = None if theirs._G is None else np.array(theirs._G)
-    mine = pt.Omp.from_numpy(A, G, device="cpu", **kw)
+    mine = pt.Omp.from_numpy(A, G, **TORCH_ROUTE, **kw)
     x, rep = mine.solve(y, 1e-3, 60)
     assert isinstance(rep, pt.OmpReport) and rep.iter == rj.iter
     np.testing.assert_allclose(x.numpy(), np.asarray(xj), atol=1e-5)
@@ -263,7 +264,7 @@ def test_solve_matches_jax(kw):
 
 def test_float64_solve_matches_jax_and_oracle():
     A, x_true, y = _problem(48, 96, 5, seed=7, dtype=np.float64)
-    x, rep = pt.Omp(A, device="cpu").solve(y, 1e-6, 100)
+    x, rep = pt.Omp(A, **TORCH_ROUTE).solve(y, 1e-6, 100)
     xj, rj = _jax(A).solve(y, 1e-6, 100)
     xo, ito, _, _ = oracle.solve(A, y, 1e-6, 100)
     assert x.dtype == torch.float64 and rep.iter == rj.iter == ito
@@ -274,8 +275,8 @@ def test_float64_solve_matches_jax_and_oracle():
 
 def test_exact_and_fast_agree():
     A, _, y = _problem(64, 160, 6, seed=9)
-    xf, rf = pt.Omp(A, precision="highest", device="cpu").solve(y, 1e-3, 60)
-    xe, re_ = pt.Omp(A, mode="exact", device="cpu").solve(y, 1e-3, 60)
+    xf, rf = pt.Omp(A, precision="highest", **TORCH_ROUTE).solve(y, 1e-3, 60)
+    xe, re_ = pt.Omp(A, mode="exact", **TORCH_ROUTE).solve(y, 1e-3, 60)
     assert rf.iter == re_.iter
     np.testing.assert_allclose(xf.numpy(), xe.numpy(), atol=1e-5)
 
@@ -289,7 +290,7 @@ def test_small_batch_regime_matches_jax_vmapped_core(kw, corr):
     theirs = _jax(A, precision="high", **kw)
     mine = pt.Omp.from_numpy(
         A, None if theirs._G is None else np.array(theirs._G),
-        precision="high", device="cpu", **kw)
+        precision="high", **TORCH_ROUTE, **kw)
     plan = mine.explain(batch=4, max_iterations=24)
     assert plan["corr"] == corr == theirs.explain(batch=4,
                                                   max_iterations=24)["corr"]
@@ -316,7 +317,7 @@ def test_gram_true_pins_the_core_past_the_crossover(monkeypatch):
     monkeypatch.setenv("SS_BATCH_NATIVE", "1")
     for kw, corr, batches in (({"gram": True}, "gram", (None, 2, 16)),
                               ({}, "driver", (None, 16))):
-        mine = pt.Omp(A, precision="high", device="cpu", **kw)
+        mine = pt.Omp(A, precision="high", **TORCH_ROUTE, **kw)
         theirs = _jax(A, precision="high", **kw)
         for batch in batches:
             got = mine.explain(batch=batch, max_iterations=24)
@@ -345,7 +346,7 @@ def test_certified_solve_and_forced_resolve(monkeypatch):
     recovered; a certificate forced to fail re-solves at "high" and
     returns that solve's result."""
     A, x_true, y = _problem(64, 160, 6, seed=9)
-    solver = pt.Omp(A, device="cpu")
+    solver = pt.Omp(A, **TORCH_ROUTE)
     x, rep = solver.solve(y, 1e-3, 60)
     r = y.astype(np.float64) - A.astype(np.float64) @ x.numpy()
     assert rep.solution_error <= 1e-3
@@ -364,7 +365,7 @@ def test_certified_solve_and_forced_resolve(monkeypatch):
     monkeypatch.setattr(papi, "_certified_l2_error", spoofed)
     xs, reps = solver.solve(y, 1e-3, 60)
     monkeypatch.undo()
-    xh, reph = pt.Omp(A, precision="high", device="cpu").solve(y, 1e-3, 60)
+    xh, reph = pt.Omp(A, precision="high", **TORCH_ROUTE).solve(y, 1e-3, 60)
     assert len(calls) == 1    # the re-solve at "high" reports its own
     assert torch.equal(xs, xh) and reps.iter == reph.iter
     assert reps.solution_error == reph.solution_error
@@ -372,7 +373,7 @@ def test_certified_solve_and_forced_resolve(monkeypatch):
 
 def test_solve_on_device_returns_tensors():
     A, _, y = _problem(48, 96, 4, seed=13)
-    solver = pt.Omp(A, precision="high", device="cpu")
+    solver = pt.Omp(A, precision="high", **TORCH_ROUTE)
     x, rep = solver.solve_on_device(torch.from_numpy(y), 1e-3, 40)
     assert x.shape == (96,) and rep.iter.shape == ()
     assert rep.iter.dtype == torch.int32 and int(rep.iter) == 4
@@ -384,7 +385,7 @@ def test_update_column_refreshes_the_core():
     """tests/test_omp.py:246 on the port: after a column is replaced, a
     signal on that column alone is found in one pick."""
     A, _, y = _problem(48, 96, 4, seed=17)
-    solver = pt.Omp(A, device="cpu")
+    solver = pt.Omp(A, **TORCH_ROUTE)
     solver.solve(y, 1e-3)                  # builds the Gram
     v = np.random.RandomState(99).randn(48).astype(np.float32)
     v /= np.linalg.norm(v)
