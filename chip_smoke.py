@@ -87,6 +87,25 @@ card's name and power limit:
     and of one 64-lane ``solve_batch`` on each route. The phase fails if
     the library does not build or load.
 
+Then the mesh phase, each route one JSON line with the card's name and
+power limit: a one-rank NCCL process group on the card
+(``parallel.distributed.initialize`` through a file store, then
+``make_mesh(1, 1)``), and each façade's ``mesh=`` route against its plain
+route at the sizes of its earlier phase: ``Homotopy`` (K1, K2, K3) and
+``Omp`` (K1, K4) certified at 4096x8192, both gram-free at 2048x65536,
+the per-lane route of ``homotopy_sharded`` (``batch_native=False``) on 8
+lanes, ``Irls`` at 2048x1024 (the plain route given the mesh's
+CholeskyQR2 factors), ``IrlsCg`` at 1024x65536 and ``Cosamp`` at
+4096x8192. Each compares iterations and X (bit-equal is expected: a
+one-rank all-reduce or gather is a copy; a route that is not says so),
+requires K1 to K4's launches equal on both routes and nonzero exactly
+where the path has the kernel, reports the collectives of one solve
+(``ops/collectives.counts``: all-reduces and gathers with their bytes),
+checks every lane (certified with the true support; IRLS argmax recovery
+equal on both; CG-IRLS supports, no breakdown) and times 5 fenced
+batches of each. The group is destroyed at the end; the mesh routes' launches join
+the JSON line's.
+
 Any failed check raises, so the script exits non-zero and never prints
 its last line. Needs one CUDA card; imports nothing of JAX.
 
@@ -1712,6 +1731,232 @@ def host_engine_phase(dev, card):
                   launches_native=launches, card=card)
 
 
+def mesh_compare(name, mesh_run, plain_run, kernels, lanes_ok, card,
+                 **fields):
+    """One mesh route against its plain route on the same inputs: the
+    first call of each counted from 0 (kernel launches, and the mesh
+    route's collectives), iterations and X compared (bit-equal expected on
+    a one-rank mesh: every all-reduce and gather is a copy), every lane
+    checked by ``lanes_ok(X, report)`` → (lanes ok, lanes), then the
+    median of 5 fenced batches of each. Prints one JSON line; returns the
+    mesh route's launches."""
+    from sparse_solvers_tpu_torch.ops import collectives, dispatch
+    dispatch.reset_launches()
+    collectives.reset_counts()
+    Xm, rm = mesh_run()
+    torch.cuda.synchronize()
+    l_mesh, coll = dict(dispatch.launches), dict(collectives.counts)
+    dispatch.reset_launches()
+    Xp, rp = plain_run()
+    torch.cuda.synchronize()
+    l_plain = dict(dispatch.launches)
+    for kname in l_mesh:
+        check(l_mesh[kname] == l_plain[kname], f"mesh {name}: {kname} "
+              f"launched {l_mesh[kname]} times on the mesh, {l_plain[kname]} "
+              f"on the plain route")
+        check((l_mesh[kname] > 0) == (kname in kernels), f"mesh {name}: "
+              f"{kname} launched {l_mesh[kname]} times")
+    check(Xm.device == Xp.device and Xm.shape == Xp.shape,
+          f"mesh {name}: X {Xm.shape} on {Xm.device}")
+    iters_equal = bool((rm.iter == rp.iter).all())
+    dx = float((Xm - Xp).abs().max())
+    bit_equal = bool(torch.equal(Xm, Xp))
+    check(iters_equal and dx <= 1e-5, f"mesh {name}: iterations equal "
+          f"{iters_equal}, max|dX| {dx}")
+    ok_mesh, lanes = lanes_ok(Xm, rm)
+    ok_plain, _ = lanes_ok(Xp, rp)
+    mesh_ms, mq1, mq3, _, _ = timed_batches(mesh_run)
+    plain_ms, pq1, pq3, _, _ = timed_batches(plain_run)
+    irls_json(phase="mesh", route=name, mesh={"data": 1, "row": 1},
+              backend="nccl", **fields, mesh_ms_per_batch=mesh_ms,
+              mesh_quartiles_ms=[mq1, mq3], plain_ms_per_batch=plain_ms,
+              plain_quartiles_ms=[pq1, pq3], iterations_equal=iters_equal,
+              max_abs_dx=dx, bit_equal=bit_equal,
+              max_iterations_run=int(rm.iter.max()),
+              launches_mesh=l_mesh, launches_plain=l_plain,
+              all_reduce_per_solve=coll["all_reduce"],
+              all_gather_per_solve=coll["all_gather"],
+              all_reduce_bytes_per_solve=coll["all_reduce_bytes"],
+              all_gather_bytes_per_solve=coll["all_gather_bytes"],
+              lanes_ok_mesh=ok_mesh, lanes_ok_plain=ok_plain, lanes=lanes,
+              card=card)
+    if not bit_equal:
+        phase(f"mesh {name}: X is not bit-equal to the plain route's on a "
+              f"one-rank mesh (max|dX| {dx}, within 1e-5)")
+    check(ok_mesh == ok_plain, f"mesh {name}: {ok_mesh} lanes ok on the "
+          f"mesh, {ok_plain} on the plain route")
+    return l_mesh
+
+
+def certified_lanes(tol, sups, k):
+    """lanes_ok for the certified greedy and Homotopy routes: the lanes
+    whose reported certificate is within ``tol`` and whose top-k support
+    is the truth's; all of them must be."""
+    def lanes_ok(X, rep):
+        errs = rep.solution_error.cpu().numpy()
+        top = np.argsort(-np.abs(X.cpu().numpy()), axis=1)[:, :k]
+        ok = [bool(errs[i] <= tol) and set(top[i].tolist()) == sups[i]
+              for i in range(len(sups))]
+        check(all(ok), f"{ok.count(False)} lanes not certified or with a "
+              f"wrong support")
+        return sum(ok), len(ok)
+    return lanes_ok
+
+
+def mesh_paths(dev, card):
+    """The mesh phase: a one-rank NCCL process group on the card
+    (``distributed.initialize`` through a file store, ``make_mesh(1, 1)``),
+    then each façade's ``mesh=`` route against its plain route at the
+    sizes of its earlier phase (``mesh_compare``): Homotopy (K1, K2, K3)
+    and Omp (K1, K4) on the 4096x8192 main-path problem, both again
+    gram-free at 2048x65536, the per-lane route of ``homotopy_sharded`` on
+    8 lanes (no kernel), Irls at 2048x1024 (the plain route given the
+    mesh's CholeskyQR2 factors), IrlsCg at 1024x65536 and Cosamp at
+    4096x8192. Ends the group. Returns the summed mesh-route launches."""
+    import shutil
+    import tempfile
+    import bench
+    from benchmarks._common import make_sparse_problem
+    from sparse_solvers_tpu_torch import Cosamp, Homotopy, Irls, IrlsCg, Omp
+    from sparse_solvers_tpu_torch.parallel import distributed, sharding
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp()
+    check(distributed.initialize(init_method=f"file://{store}/init",
+                                 world_size=1, rank=0, backend="nccl"),
+          "the NCCL group did not initialize")
+    launches = {}
+
+    def add(counts):
+        for kname, count in counts.items():
+            launches[kname] = launches.get(kname, 0) + count
+
+    try:
+        mesh = sharding.make_mesh(1, 1)
+        check(mesh.device == dev and mesh.backend == "nccl"
+              and torch.distributed.get_backend(mesh.row_group) == "nccl",
+              f"mesh {mesh}: not an NCCL mesh on {dev}")
+        # the main paths' problems: Homotopy on bench.py's, OMP, CoSaMP on
+        # benchmarks/bench_omp.py's
+        A, Y = bench.make_problem(M, N, K_SPARSE, BATCH)
+        Yd = torch.from_numpy(Y).to(dev)
+        sups = true_supports()
+        mesh_solver = Homotopy(A, k_max=K_MAX, mesh=mesh)
+        plain = Homotopy(A, k_max=K_MAX, device=dev)
+        add(mesh_compare(
+            "homotopy", lambda: mesh_solver.solve_batch(Yd, TOL, MAX_ITER),
+            lambda: plain.solve_batch(Yd, TOL, MAX_ITER), HOMOTOPY_KERNELS,
+            certified_lanes(TOL, sups, K_SPARSE), card, m=M, n=N,
+            k=K_SPARSE, batch=BATCH, max_iterations=MAX_ITER,
+            precision="certified"))
+        # the per-lane route of homotopy_sharded on 8 lanes (the sparse
+        # regime, where the plain façade takes the per-lane core too: no
+        # hand kernel), given the façade's Gram
+        G = sharding.gram_replicated(mesh, A)
+        add(mesh_compare(
+            "homotopy_sharded per-lane", lambda: sharding.homotopy_sharded(
+                mesh, A, Yd[:8], TOL, MAX_ITER, k_max=K_MAX,
+                precision="certified", batch_native=False, G=G),
+            lambda: plain.solve_batch(Yd[:8], TOL, MAX_ITER), (),
+            certified_lanes(TOL, sups[:8], K_SPARSE), card, m=M, n=N,
+            k=K_SPARSE, batch=8, max_iterations=MAX_ITER,
+            precision="certified"))
+        del mesh_solver, plain, G
+        A, X0, Y = make_sparse_problem(M, N, K_SPARSE, BATCH, seed=0)
+        Yd = torch.from_numpy(Y).to(dev)
+        sups = [set(np.flatnonzero(x).tolist()) for x in X0]
+        mesh_solver, plain = Omp(A, mesh=mesh), Omp(A, device=dev)
+        add(mesh_compare(
+            "omp", lambda: mesh_solver.solve_batch(Yd, TOL, OMP_MAX_ITER),
+            lambda: plain.solve_batch(Yd, TOL, OMP_MAX_ITER), OMP_KERNELS,
+            certified_lanes(TOL, sups, K_SPARSE), card, m=M, n=N, k=K_SPARSE,
+            batch=BATCH, max_iterations=OMP_MAX_ITER, precision="certified"))
+        mesh_solver = Cosamp(A, K_SPARSE, mesh=mesh)
+        plain = Cosamp(A, K_SPARSE, device=dev)
+        add(mesh_compare(
+            "cosamp", lambda: mesh_solver.solve_batch(Yd, COSAMP_TOL,
+                                                      COSAMP_ROUNDS),
+            lambda: plain.solve_batch(Yd, COSAMP_TOL, COSAMP_ROUNDS), (),
+            certified_lanes(COSAMP_TOL, sups, K_SPARSE), card, m=M, n=N,
+            k=K_SPARSE, batch=BATCH, max_iterations=COSAMP_ROUNDS,
+            precision="highest"))
+        del mesh_solver, plain
+        torch.cuda.empty_cache()
+        # the gram-free paths at 2048x65536
+        m, n, k = GF_SHAPE
+        A, X0, Y = make_sparse_problem(m, n, k, BATCH, seed=0)
+        Yd = torch.from_numpy(Y).to(dev)
+        sups = [set(np.flatnonzero(x).tolist()) for x in X0]
+        for label, cls, max_iter, kernels in (
+                ("gram-free homotopy", Homotopy, GF_MAX_ITER,
+                 HOMOTOPY_KERNELS),
+                ("gram-free omp", Omp, GF_OMP_MAX_ITER, OMP_KERNELS)):
+            mesh_solver = cls(A, gram=False, mesh=mesh)
+            plain = cls(A, gram=False, device=dev)
+            add(mesh_compare(
+                label, lambda: mesh_solver.solve_batch(Yd, TOL, max_iter),
+                lambda: plain.solve_batch(Yd, TOL, max_iter), kernels,
+                certified_lanes(TOL, sups, k), card, m=m, n=n, k=k,
+                batch=BATCH, max_iterations=max_iter, precision="certified"))
+            del mesh_solver, plain
+            torch.cuda.empty_cache()
+        # IRLS at 2048x1024 (bench_irls_batch.py's problem); the plain
+        # route takes the mesh's factors, so both iterate from one QR
+        m, n = IRLS_SHAPES[0]
+        A, X0, Y = make_sparse_problem(m, n, 1, IRLS_BATCH, seed=0)
+        Y = Y + np.random.RandomState(1).uniform(
+            0, 0.02, Y.shape).astype(np.float32)
+        Yd = torch.from_numpy(Y).to(dev)
+        truth = X0.argmax(axis=1)
+        mesh_solver = Irls(A, mesh=mesh)
+        Q, R = mesh_solver._mesh_qr()
+        plain = Irls.from_numpy(A, Q=Q.cpu().numpy(), R=R.cpu().numpy(),
+                                device=dev)
+
+        def irls_lanes(X, rep):
+            hit = X.argmax(dim=1).cpu().numpy() == truth
+            return int(hit.sum()), len(hit)
+
+        add(mesh_compare(
+            "irls", lambda: mesh_solver.solve_batch(Yd, IRLS_TOL,
+                                                    IRLS_MAX_ITER),
+            lambda: plain.solve_batch(Yd, IRLS_TOL, IRLS_MAX_ITER), (),
+            irls_lanes, card, m=m, n=n, batch=IRLS_BATCH,
+            max_iterations=IRLS_MAX_ITER, precision="highest",
+            factorization="CholeskyQR2 on the mesh, given to both"))
+        # CG-IRLS at 1024x65536 (bench_irls_cg.py's second configuration)
+        m, n, k, batch, max_outer, cg_max = CG_CONFIGS[1]
+        A, X0, Y = make_sparse_problem(m, n, k, batch, signed=True,
+                                       amp=(0.5, 1.5))
+        Yd = torch.from_numpy(Y).to(dev)
+        sups = [set(np.flatnonzero(x).tolist()) for x in X0]
+        mesh_solver = IrlsCg(A, k_sparsity=2 * k, cg_max_iterations=cg_max,
+                             mesh=mesh)
+        plain = IrlsCg(A, k_sparsity=2 * k, cg_max_iterations=cg_max,
+                       device=dev)
+
+        def cg_lanes(X, rep):
+            top = np.argsort(-np.abs(X.cpu().numpy()), axis=1)[:, :k]
+            ok = [set(top[i].tolist()) == sups[i]
+                  and not bool(rep.spd_failure[i]) for i in range(batch)]
+            check(all(ok), f"irls_cg: {ok.count(False)} lanes missed")
+            return sum(ok), len(ok)
+
+        add(mesh_compare(
+            "irls_cg", lambda: mesh_solver.solve_batch(Yd, CG_TOL,
+                                                       max_outer),
+            lambda: plain.solve_batch(Yd, CG_TOL, max_outer), (), cg_lanes,
+            card, m=m, n=n, k=k, batch=batch, max_iterations=max_outer,
+            cg_max=cg_max, precision="highest"))
+        del mesh_solver, plain
+        torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    phase(f"mesh phases took {time.perf_counter() - t0:.2f} s; launches "
+          f"{launches}")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1789,6 +2034,10 @@ def main() -> int:
     irls_paths(dev, card)
     cosamp_paths(dev, card)
     host_engine_phase(dev, card)
+    # the mesh routes run K1 to K4 behind the collectives: their launches
+    # join the JSON line's
+    for name, count in mesh_paths(dev, card).items():
+        launches[name] += count
     phase(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = []

@@ -1,20 +1,20 @@
 """Public solver API — the port of ``sparse_solvers_tpu/api.py``'s
 ``Homotopy``, ``Omp``, ``Irls``, ``IrlsCg`` and ``Cosamp`` façades.
 
-Ported: the five façades whole on one device, all but ``mesh=``: for
-``Homotopy`` and ``Omp`` every ``solve*`` route, both modes, float32 and
-float64, with a Gram, without one and gram-free in the batch drivers, and
-``picks`` for gOMP, and ``update_column``; for ``Irls`` the fast
-(triangular-solve or R⁻¹-gemm Newton), exact and stabilized loops over a
-QR computed once; for ``IrlsCg`` the factorization-free loop and
-``update_column``; for ``Cosamp`` the support-replacing rounds; and the
-C++ host engine of ``csrc/`` (``engine="native"``, and ``"auto"`` on a
-CPU façade's problems of at most 2¹⁶ elements) for ``solve`` and
-``solve_batch`` of the first four. Also the module functions
-``densify_batch``, ``densify_path``, ``lasso_at``, ``lasso_at_batch``,
-``reconstruct_signal`` and ``norm_l1``. ``mesh=`` raises
-``NotImplementedError`` naming its ROADMAP.md item; the port adds no
-feature the JAX package lacks.
+Ported: the five façades whole: for ``Homotopy`` and ``Omp`` every
+``solve*`` route, both modes, float32 and float64, with a Gram, without
+one and gram-free in the batch drivers, and ``picks`` for gOMP, and
+``update_column``; for ``Irls`` the fast (triangular-solve or R⁻¹-gemm
+Newton), exact and stabilized loops over a QR computed once; for
+``IrlsCg`` the factorization-free loop and ``update_column``; for
+``Cosamp`` the support-replacing rounds; the C++ host engine of ``csrc/``
+(``engine="native"``, and ``"auto"`` on a CPU façade's problems of at
+most 2¹⁶ elements) for ``solve`` and ``solve_batch`` of the first four;
+and ``mesh=`` in all five, the construct-once form of the sharded routes
+of ``parallel/sharding.py`` (api.py:142-252 of the JAX package). Also the
+module functions ``densify_batch``, ``densify_path``, ``lasso_at``,
+``lasso_at_batch``, ``reconstruct_signal`` and ``norm_l1``. The port adds
+no feature the JAX package lacks.
 
 PyTorch semantics against the JAX façade:
   * every façade takes ``device="cuda"`` and places A, and lazily AᵀA or
@@ -34,6 +34,12 @@ PyTorch semantics against the JAX façade:
     compiled or cached per shape, and solutions are tensors on the device.
     The regularization-path helpers work on the host, in numpy, as the
     JAX package's do.
+  * ``mesh=`` (a ``parallel.sharding.Mesh`` from ``make_mesh``) is SPMD:
+    every rank of the process group constructs the same façade from the
+    same A and calls it with the same signals. The whole A stays on the
+    host; each rank places its shard on the mesh's device once, at first
+    use (with the replicated Gram, or the mesh's QR), pads the batch to
+    the data axis and gets the whole answer back on that device.
 """
 
 from __future__ import annotations
@@ -71,12 +77,6 @@ _PRECISION_VALUES = ("highest", "high", "default", "certified")
 # (api.py:305-307); the port's "auto" does so only on a CPU façade, as
 # no crossover against the card has set a threshold there.
 _NATIVE_AUTO_ELEMS = 1 << 16
-
-
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to sparse_solvers_tpu_torch yet: "
-        f"ROADMAP.md Queue 1 item {item}")
 
 
 def _default_tolerance(dtype) -> float:
@@ -120,6 +120,42 @@ def _route_native(engine: str, m: int, n: int, probe: bool,
                 "unavailable (build failed or SS_NATIVE_DISABLE=1)")
         return False
     return True
+
+
+def _check_mesh(mesh, engine: str) -> None:
+    """Validate the façades' ``mesh=`` argument (api.py:142-161): a
+    ``parallel.sharding.Mesh``, as ``make_mesh`` builds one; mesh-sharded
+    solving runs the torch routes, never the host engine."""
+    from .parallel import sharding as _sh
+    if not isinstance(mesh, _sh.Mesh):
+        raise ValueError(
+            "mesh must be a sparse_solvers_tpu_torch.parallel.sharding.Mesh "
+            f"(make_mesh), got {type(mesh).__name__}")
+    if engine == "native":
+        raise ValueError(
+            "mesh-sharded solving runs on the jax engine; drop "
+            "engine='native' or the mesh")
+
+
+def _mesh_prep_batch(mesh, Y: torch.Tensor, m_pad: int):
+    """This rank's lanes and rows of a (batch, m) signal block, the batch
+    padded with zero signals to the data-axis multiple and the rows to the
+    placed A's padded m (api.py:173-189; the zero lanes are trimmed from
+    the result). Returns (Y_local, batch_pad)."""
+    from .parallel import sharding as _sh
+    bpad = (-Y.shape[0]) % mesh.shape[_sh.DATA_AXIS]
+    if bpad:
+        Y = torch.nn.functional.pad(Y, (0, 0, 0, bpad))
+    return _sh.shard_signals(mesh, Y, m_pad, Y.dtype), bpad
+
+
+def _trim_batch(out, rep, bpad: int, dense: bool):
+    """Drop the data-axis padding lanes from a sharded batch result."""
+    if not bpad:
+        return out, rep
+    cut = lambda a: a[:-bpad]
+    out = cut(out) if dense else (cut(out[0]), cut(out[1]))
+    return out, type(rep)(*(cut(f) for f in rep))
 
 
 def _check_max_iterations(max_iterations: int) -> int:
@@ -198,17 +234,25 @@ def _numpy(a) -> np.ndarray:
 
 
 class _Solver:
-    """What every façade shares: A on the solver's device."""
+    """What every façade shares: A on the solver's device, or on the host
+    beside a mesh."""
 
-    def _load(self, A, device) -> None:
+    def _load(self, A, device, mesh=None) -> None:
         """Place A on ``device``; a CUDA device without a card is an
-        error, never a silent CPU run."""
-        self._device = torch.device(device)
-        if self._device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device={device!r} but torch sees no CUDA device; pass "
-                "device='cpu' to run the plain PyTorch twins")
-        self._A = ndview.as_matrix(A, device=self._device)
+        error, never a silent CPU run. With a ``mesh`` the solver's device
+        is the mesh's and A stays on the host: each rank places its shard
+        at first use."""
+        self._mesh = mesh
+        if mesh is not None:
+            self._device = mesh.device
+            self._A = ndview.as_matrix(A, device="cpu")
+        else:
+            self._device = torch.device(device)
+            if self._device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"device={device!r} but torch sees no CUDA device; pass "
+                    "device='cpu' to run the plain PyTorch twins")
+            self._A = ndview.as_matrix(A, device=self._device)
         self._m, self._n = self._A.shape
         self._A_host = None
 
@@ -237,7 +281,7 @@ class _Solver:
             raise ValueError(
                 f"column index {j} out of range [0, {self._n})")
         v = ndview.as_vector(col, dtype=self.dtype, size=self._m,
-                             device=self._device)
+                             device=self._A.device)
         A = self._A.clone()
         A[:, j] = v
         self._A = A
@@ -255,16 +299,47 @@ class _Solver:
         return (_default_tolerance(self.dtype)
                 if tolerance is None else float(tolerance))
 
+    def _row_shard(self) -> torch.Tensor:
+        """This rank's rows of A on the mesh's device."""
+        from .parallel import sharding as _sh
+        return _sh.shard_rows(self._mesh, self._A)
+
+    def _m_padded(self) -> int:
+        """A's row count padded to the mesh's row-axis multiple."""
+        from .parallel import sharding as _sh
+        S = self._mesh.shape[_sh.ROW_AXIS]
+        return self._m + (-self._m) % S
+
+    def _mesh_batch(self, Y: torch.Tensor, run, dense: bool = True):
+        """``run(Y_local)`` → (X, report) or (values, indices, report) on
+        this rank's lanes and rows of Y, the batch padded to the data axis
+        and the padding trimmed; returns what a ``solve_batch`` returns."""
+        Yl, bpad = _mesh_prep_batch(self._mesh, Y, self._m_padded())
+        out = run(Yl)
+        X, rep = _trim_batch(out[0] if dense else out[:2], out[-1], bpad,
+                             dense)
+        return (X, rep) if dense else (*X, rep)
+
+    def _mesh_single(self, y: torch.Tensor, solve_batch):
+        """A single solve through the mesh route: one lane of
+        ``solve_batch(Y)``, as (x, report of 0-d tensors)."""
+        X, rep = solve_batch(y[None])
+        return X[0], type(rep)(*(f[0] for f in rep))
+
 
 class _GramSolver(_Solver):
     """What the Homotopy and OMP façades share besides A: its lazy Gram
     (the JAX package's ``_lazy_gram``) and the gram-free drivers'
     transposed copies."""
 
-    def _load(self, A, device) -> None:
-        super()._load(A, device)
+    def _load(self, A, device, mesh=None) -> None:
+        super()._load(A, device, mesh)
         self._G_cache = None
         self._AT_cache: dict[bool, torch.Tensor] = {}
+        # the mesh route's shard of A, replicated Gram and transposed
+        # copies of the shard, placed at first use
+        self._A_mesh = self._G_mesh = None
+        self._AT_mesh: dict[bool, torch.Tensor] = {}
 
     def _gram_auto(self, gram: bool | None) -> bool:
         """``gram=None`` is on while n² values of A's dtype fit in 1 GiB
@@ -314,6 +389,16 @@ class _GramSolver(_Solver):
         holds a const view of A (policies.h:42)."""
         self._replace_column(j, col)
         self._AT_cache.clear()
+        self._AT_mesh.clear()
+        if self._A_mesh is not None:
+            # shard-local column and the replicated Gram's row and column
+            # from one all-reduced Aᵀv (sharding.update_column_sharded);
+            # before the first placement the lazy one reads the new A
+            from .parallel import sharding as _sh
+            self._G_mesh = _sh._update_column_local(
+                self._mesh, self._A_mesh, self._G_mesh,
+                _sh.shard_rows(self._mesh, self._A[:, j], self._m_padded()),
+                j)
         if self._G_cache is not None:
             # the new Gram row/col g = Aᵀ_new v, at the precision the lazy
             # Gram was built at (the updated column lands vᵀv on the
@@ -324,6 +409,41 @@ class _GramSolver(_Solver):
             G[:, j] = g
             G[j, :] = g
             self._G_cache = G
+
+    def _mesh_arrays(self):
+        """The mesh route's construct-once state: this rank's rows of A
+        and, with the Gram on, the replicated AᵀA all-reduced once at
+        "highest" (api.py:388-401)."""
+        if self._A_mesh is None:
+            from .parallel import sharding as _sh
+            self._A_mesh = self._row_shard()
+            if self._gram_enabled:
+                self._G_mesh = _sh._gram_local(self._mesh, self._A_mesh)
+        return self._A_mesh, self._G_mesh
+
+    def _mesh_plan(self, batch: int | None, k_max: int, sparse_rule):
+        """The mesh plan's shared keys (api.py:465-493): the per-rank lane
+        count, the padded m the sharded route tests its crossovers
+        against, whether it takes the driver (``sparse_rule(local_b, m)``
+        gives the sparse regime) and the q reduction's form."""
+        from .parallel import sharding as _sh
+        S = self._mesh.shape[_sh.ROW_AXIS]
+        local_b = -(-(batch or 1) // self._mesh.shape[_sh.DATA_AXIS])
+        bn = _homotopy_batch.route_batch_native(
+            local_b, self._n, self._A.dtype,
+            sparse_rule(local_b, self._m_padded()))
+        ring = bn and S > 1 and self._n >= 128 * S
+        # K1 carries q on the driver's one-pass path unless the reduction
+        # is split (the ring, or overlap_blocks' auto 4 at n ≥ 512)
+        fused_q = (bn and self._precision in ("certified", "default")
+                   and not ring and not (S > 1 and self._n >= 512))
+        return {"engine": "torch", "device": str(self._device),
+                "mode": self._mode, "precision": self._precision,
+                "mesh": dict(self._mesh.shape), "sharded": True,
+                "gram": self._gram_enabled,
+                "gram_cached": self._G_mesh is not None, "k_max": k_max,
+                "batch_native": bn, "fused_q": fused_q,
+                "overlap_mode": "ppermute" if ring else "psum"}
 
 
 class Homotopy(_GramSolver):
@@ -336,7 +456,12 @@ class Homotopy(_GramSolver):
     float64 and ``mode="exact"`` take the per-lane core. ``engine``:
     "native" runs ``solve`` and ``solve_batch`` on the C++ host engine
     (fast mode only), "auto" does so where m·n ≤ 2¹⁶, and "jax" never;
-    the other entries always take the torch routes.
+    the other entries always take the torch routes. ``mesh`` (a
+    ``parallel.sharding.Mesh``) routes ``solve*`` through
+    ``homotopy_sharded`` on the mesh's device: each rank's rows of A placed
+    once, the replicated Gram all-reduced once, the batch padded to the
+    data axis and trimmed; fast mode only, and ``solve_path*`` stay
+    single-device.
     """
 
     def __init__(self, A, k_max: int | None = None, mode: str = "fast",
@@ -361,10 +486,15 @@ class Homotopy(_GramSolver):
                 "precision; mode='exact' (operation-for-operation "
                 "reference parity) requires 'high' or 'highest'")
         if mesh is not None:
-            raise _unported("mesh= (multi-GPU solving)", 10)
+            if mode == "exact":
+                raise ValueError(
+                    "mesh-sharded solving runs the fast-path "
+                    "formulation; mode='exact' is single-device")
+            _check_mesh(mesh, engine)
         self._engine = engine
-        self._load(A, device)
-        _warn_small_problem_jax(engine, self._m, self._n, self._device)
+        self._load(A, device, mesh)
+        if mesh is None:
+            _warn_small_problem_jax(engine, self._m, self._n, self._device)
         self._k_max = k_max
         self._mode = mode
         self._precision = precision or ("certified" if mode == "fast"
@@ -386,8 +516,9 @@ class Homotopy(_GramSolver):
 
     def _use_native(self, probe: bool = False) -> bool:
         """Whether ``solve``/``solve_batch`` run on the host engine; exact
-        mode never does (api.py:597-603)."""
-        if self._engine == "jax" or self._mode == "exact":
+        mode and a mesh never do (api.py:597-603)."""
+        if (self._engine == "jax" or self._mode == "exact"
+                or self._mesh is not None):
             return False
         return _route_native(self._engine, self._m, self._n, probe,
                              self._device)
@@ -399,6 +530,8 @@ class Homotopy(_GramSolver):
         effects (no build of the host library)."""
         if self._use_native(probe=True):
             return self._native_plan(self._mode)
+        if self._mesh is not None:
+            return self._explain_mesh(batch, max_iterations)
         k_max, sparse, batch_native = self._plan(max_iterations, batch)
         if batch_native:
             formulation = ("slot-space batch driver (scan + transition "
@@ -437,6 +570,38 @@ class Homotopy(_GramSolver):
                 ("normal_matvec_fused_bf16",) * plan["fused_q"]
                 + ("find_max_gamma_fused", "transition")))
         return plan
+
+    def _explain_mesh(self, batch: int | None, max_iterations: int) -> dict:
+        """The mesh route's plan (api.py:465-493)."""
+        k_max = self._k_max or min(self._n, max_iterations + 1)
+        plan = self._mesh_plan(batch, k_max, lambda b, m: (
+            self._gram_enabled and b * k_max < 2 * m and k_max < self._n))
+        bn = plan["batch_native"]
+        plan["formulation"] = ("row+data sharded solve (parallel/sharding."
+                               "homotopy_sharded, " + (
+                                   "slot-space driver)" if bn
+                                   else "per-lane core)"))
+        if self._precision == "certified":
+            plan["path_precision"] = "default"
+            plan["certificate"] = ("all-reduced ‖Aᵀ(y−Ax)‖∞ at high "
+                                   "precision; failing lanes re-solve")
+        plan["kernels"] = _dispatch.explain(self._device, (
+            ("normal_matvec_fused_bf16",) * plan["fused_q"]
+            + ("find_max_gamma_fused", "transition"))) if bn else {}
+        return plan
+
+    def _solve_batch_mesh(self, Y: torch.Tensor, tol, max_iterations: int,
+                          dense: bool = True):
+        """``solve_batch`` through ``homotopy_sharded`` (api.py:403-418),
+        the certified re-solve included."""
+        from .parallel import sharding as _sh
+        A, G = self._mesh_arrays()
+        k_max = self._k_max or min(self._n, max_iterations + 1)
+        return self._mesh_batch(Y, lambda Yl: _sh._homotopy_placed(
+            self._mesh, A, Yl, tol, max_iterations, m=self._m_padded(),
+            k_max=k_max, gram=self._gram_enabled if G is None else None,
+            G=G, precision=self._precision, dense=dense,
+            at_cache=self._AT_mesh), dense)
 
     def _fn(self, max_iterations: int, batch: int | None,
             precision: str | None = None, record_path: bool = False,
@@ -497,6 +662,11 @@ class Homotopy(_GramSolver):
                              device=self._device)
         tol = self._tol(tolerance)
         _check_max_iterations(max_iterations)
+        if self._mesh is not None:
+            x, rep = self._mesh_single(y, lambda Y: self._solve_batch_mesh(
+                Y, tol, max_iterations))
+            return x, HomotopyReport(iter=int(rep.iter),
+                                     solution_error=float(rep.solution_error))
         if self._use_native():
             k_max = self._k_max or min(self._n, max_iterations + 1)
             xn, it, err = _native.homotopy_solve(
@@ -521,9 +691,20 @@ class Homotopy(_GramSolver):
         the certified re-solve: under "certified" the report's
         solution_error is the certificate, to be checked against the
         tolerance downstream. Returns (x, HomotopyReportArrays of 0-d
-        tensors)."""
+        tensors). With a mesh the solve takes the sharded route, whose
+        certified re-solve runs inside it (as in the JAX package)."""
+        if self._mesh is not None:
+            return self._mesh_single(y, lambda Y: self._solve_batch_mesh(
+                Y, tolerance, max_iterations))
         return self._fn(max_iterations, batch=None)(self._A, self._G, y,
                                                     tolerance)
+
+    def _no_mesh_path(self, what: str) -> None:
+        if self._mesh is not None:
+            raise ValueError(
+                f"{what} is single-device (the breakpoint history is not "
+                "plumbed through the sharded drivers); construct without "
+                "mesh= for path extraction")
 
     def solve_path(self, b, tolerance: float | None = None,
                    max_iterations: int = 100):
@@ -538,6 +719,7 @@ class Homotopy(_GramSolver):
                              device=self._device)
         tol = self._tol(tolerance)
         _check_max_iterations(max_iterations)
+        self._no_mesh_path("solve_path")
         precision = ("high" if self._precision == "certified"
                      else self._precision)
         _, rep, (hv, hi, hl) = self._fn(
@@ -562,6 +744,7 @@ class Homotopy(_GramSolver):
                                    device=self._device)
         tol = self._tol(tolerance)
         _check_max_iterations(max_iterations)
+        self._no_mesh_path("solve_path_batch")
         precision = ("high" if self._precision == "certified"
                      else self._precision)
         _, rep, (hv, hi, hl) = self._fn(
@@ -586,6 +769,8 @@ class Homotopy(_GramSolver):
                                    device=self._device)
         tol = self._tol(tolerance)
         _check_max_iterations(max_iterations)
+        if self._mesh is not None:
+            return self._solve_batch_mesh(Y, tol, max_iterations, dense)
         if self._use_native():
             k_max = self._k_max or min(self._n, max_iterations + 1)
             X, iters, errs = self._from_host(*_native.homotopy_solve_batch(
@@ -627,7 +812,12 @@ class Homotopy(_GramSolver):
         device, without host-side conversion or the certified re-solve:
         under "certified" each lane's solution_error is the certificate,
         to be checked against the tolerance downstream. Returns (X,
-        report), or ((values, indices), report) when ``dense=False``."""
+        report), or ((values, indices), report) when ``dense=False``. With
+        a mesh the solve takes the sharded route, whose certified re-solve
+        runs inside it (as in the JAX package)."""
+        if self._mesh is not None:
+            out = self._solve_batch_mesh(Y, tolerance, max_iterations, dense)
+            return out if dense else (out[:2], out[2])
         return self._fn(max_iterations, batch=Y.shape[0], dense=dense)(
             self._A, self._G, Y, tolerance)
 
@@ -651,7 +841,8 @@ class Omp(_GramSolver):
     certificate per lane, and ``solve``/``solve_batch`` re-solve lanes that
     miss the tolerance at "high". ``engine`` routes as ``Homotopy``'s:
     "native" (fast mode only), and "auto" where m·n ≤ 2¹⁶, run ``solve``
-    and ``solve_batch`` on the C++ host engine.
+    and ``solve_batch`` on the C++ host engine. ``mesh``: as
+    ``Homotopy``'s, through ``omp_sharded``.
     """
 
     def __init__(self, A, k_max: int | None = None, mode: str = "fast",
@@ -691,14 +882,15 @@ class Omp(_GramSolver):
         if k_max is not None and k_max < 1:
             raise ValueError(f"k_max must be >= 1, got {k_max}")
         if mesh is not None:
-            raise _unported("mesh= (multi-GPU solving)", 10)
+            _check_mesh(mesh, engine)
         self._engine = engine
-        self._load(A, device)
+        self._load(A, device, mesh)
         if picks > self._n:
             raise ValueError(
                 f"picks must be <= n = {self._n} (each round selects "
                 f"picks inactive columns), got {picks}")
-        _warn_small_problem_jax(engine, self._m, self._n, self._device)
+        if mesh is None:
+            _warn_small_problem_jax(engine, self._m, self._n, self._device)
         self._k_max = k_max
         self._mode = mode
         self._precision = precision or ("certified" if mode == "fast"
@@ -738,8 +930,9 @@ class Omp(_GramSolver):
 
     def _use_native(self, probe: bool = False) -> bool:
         """Whether ``solve``/``solve_batch`` run on the host engine; exact
-        mode never does (api.py:1565-1570)."""
-        if self._engine == "jax" or self._mode == "exact":
+        mode and a mesh never do (api.py:1565-1570)."""
+        if (self._engine == "jax" or self._mode == "exact"
+                or self._mesh is not None):
             return False
         return _route_native(self._engine, self._m, self._n, probe,
                              self._device)
@@ -752,6 +945,8 @@ class Omp(_GramSolver):
         k_max = self._resolved_k_max(max_iterations)
         if self._use_native(probe=True):
             return dict(self._native_plan(self._mode), k_max=k_max)
+        if self._mesh is not None:
+            return self._explain_mesh(batch, k_max)
         driver = self._route_driver(batch, max_iterations)
         plan = {
             "engine": "torch",
@@ -792,6 +987,50 @@ class Omp(_GramSolver):
             # runs no Pallas kernel
             plan["kernels"] = {}
         return plan
+
+    def _explain_mesh(self, batch: int | None, k_max: int) -> dict:
+        """The mesh route's plan (api.py:1618-1642)."""
+        plan = self._mesh_plan(batch, k_max, lambda b, m: b * k_max < 2 * m)
+        if self._gram_forced:
+            # gram=True pins the Gram-gather per-lane core
+            plan.update(batch_native=False, fused_q=False,
+                        overlap_mode="psum")
+        plan["formulation"] = ("row+data sharded OMP (parallel/sharding."
+                               "omp_sharded, " + (
+                                   "slot-space driver)"
+                                   if plan["batch_native"]
+                                   else "per-lane core)"))
+        if self._picks > 1:
+            plan["picks"] = self._picks
+        if self._precision == "certified":
+            plan["path_precision"] = "default"
+            plan["certificate"] = ("all-reduced ‖y−Ax‖₂ at high precision; "
+                                   "failing lanes re-solve")
+        plan["kernels"] = _dispatch.explain(self._device, (
+            ("normal_matvec_fused_bf16",) * plan["fused_q"]
+            + ("omp_insert",))) if plan["batch_native"] else {}
+        return plan
+
+    def _mesh_gram_arg(self):
+        """``omp_sharded``'s gram argument (api.py:1581-1587): an explicit
+        True pins the Gram-gather formulation, an auto-enabled Gram passes
+        None (the precomputed G turns it on without pinning), off is
+        False."""
+        if self._gram_forced:
+            return True
+        return None if self._gram_enabled else False
+
+    def _solve_batch_mesh(self, Y: torch.Tensor, tol, max_iterations: int,
+                          dense: bool = True):
+        """``solve_batch`` through ``omp_sharded`` (api.py:1589-1604), the
+        certified re-solve included."""
+        from .parallel import sharding as _sh
+        A, G = self._mesh_arrays()
+        return self._mesh_batch(Y, lambda Yl: _sh._omp_placed(
+            self._mesh, A, Yl, tol, max_iterations, m=self._m_padded(),
+            k_max=self._resolved_k_max(max_iterations),
+            gram=self._mesh_gram_arg(), G=G, precision=self._precision,
+            dense=dense, picks=self._picks, at_cache=self._AT_mesh), dense)
 
     def _fn(self, max_iterations: int, batch: int | None,
             precision: str | None = None, dense: bool = True):
@@ -847,6 +1086,11 @@ class Omp(_GramSolver):
                              device=self._device)
         tol = self._tol(tolerance)
         _check_max_iterations(max_iterations)
+        if self._mesh is not None:
+            x, rep = self._mesh_single(y, lambda Y: self._solve_batch_mesh(
+                Y, tol, max_iterations))
+            return x, OmpReport(iter=int(rep.iter),
+                                solution_error=float(rep.solution_error))
         if self._use_native():
             xn, it, err = _native.omp_solve(
                 self._host_A(), _numpy(y), tol, max_iterations,
@@ -871,7 +1115,11 @@ class Omp(_GramSolver):
         the certified re-solve: under "certified" the report's
         solution_error is the certificate, to be checked against the
         tolerance downstream. Returns (x, OmpReportArrays of 0-d
-        tensors)."""
+        tensors). With a mesh the solve takes the sharded route, whose
+        certified re-solve runs inside it (as in the JAX package)."""
+        if self._mesh is not None:
+            return self._mesh_single(y, lambda Y: self._solve_batch_mesh(
+                Y, tolerance, max_iterations))
         return self._fn(max_iterations, batch=None)(self._A, self._G, y,
                                                     tolerance)
 
@@ -889,6 +1137,8 @@ class Omp(_GramSolver):
                                    device=self._device)
         tol = self._tol(tolerance)
         _check_max_iterations(max_iterations)
+        if self._mesh is not None:
+            return self._solve_batch_mesh(Y, tol, max_iterations, dense)
         if self._use_native():
             k_max = self._resolved_k_max(max_iterations)
             X, iters, errs = self._from_host(*_native.omp_solve_batch(
@@ -929,7 +1179,12 @@ class Omp(_GramSolver):
         device, without host-side conversion or the certified re-solve:
         under "certified" each lane's solution_error is the certificate,
         to be checked against the tolerance downstream. Returns (X,
-        report), or ((values, indices), report) when ``dense=False``."""
+        report), or ((values, indices), report) when ``dense=False``. With
+        a mesh the solve takes the sharded route, whose certified re-solve
+        runs inside it (as in the JAX package)."""
+        if self._mesh is not None:
+            out = self._solve_batch_mesh(Y, tolerance, max_iterations, dense)
+            return out if dense else (out[:2], out[2])
         return self._fn(max_iterations, batch=Y.shape[0], dense=dense)(
             self._A, self._G, Y, tolerance)
 
@@ -952,7 +1207,10 @@ class Irls(_Solver):
     (default "cuda") is where A, Q, R and every solve live. ``engine``
     "native" runs ``solve`` and ``solve_batch`` on the C++ host engine
     over its own QR (not with ``stabilized``), "auto" does so where m·n ≤
-    2¹⁶ and the loop is not stabilized, and "jax" never.
+    2¹⁶ and the loop is not stabilized, and "jax" never. ``mesh`` (a
+    ``parallel.sharding.Mesh``) factors A once on the mesh itself
+    (``qr_sharded``'s CholeskyQR2 on the row shards, no host QR) and routes
+    ``solve*`` through ``irls_sharded`` on the mesh's device.
     """
 
     def __init__(self, A, engine: str = "auto", mode: str = "fast",
@@ -972,11 +1230,12 @@ class Irls(_Solver):
                 "stabilized IRLS runs on the jax engine (the native host "
                 "backend implements the reference recurrence)")
         if mesh is not None:
-            raise _unported("mesh= (multi-GPU solving)", 10)
+            _check_mesh(mesh, engine)
         self._engine = engine
         self._native = None
-        self._load(A, device)
-        _warn_small_problem_jax(engine, self._m, self._n, self._device)
+        self._load(A, device, mesh)
+        if mesh is None:
+            _warn_small_problem_jax(engine, self._m, self._n, self._device)
         if self._m < self._n:
             raise ValueError(
                 "Irls requires m >= n (underdetermined systems not "
@@ -987,6 +1246,7 @@ class Irls(_Solver):
         self._stabilized = bool(stabilized)
         self._QR_cache = None
         self._Rinv_cache = None
+        self._QR_mesh = None  # (this rank's Q rows, R), lazy
 
     @classmethod
     def from_numpy(cls, A, Q=None, R=None, r_inv=None, **kwargs):
@@ -1039,8 +1299,9 @@ class Irls(_Solver):
 
     def _use_native(self, probe: bool = False) -> bool:
         """Whether ``solve``/``solve_batch`` run on the host engine; the
-        stabilized loop never does (api.py:1055-1061)."""
-        if self._engine == "jax" or self._stabilized:
+        stabilized loop and a mesh never do (api.py:1055-1061)."""
+        if (self._engine == "jax" or self._stabilized
+                or self._mesh is not None):
             return False
         return _route_native(self._engine, self._m, self._n, probe,
                              self._device)
@@ -1057,6 +1318,18 @@ class Irls(_Solver):
         façade's keys). No side effects."""
         if self._use_native(probe=True):
             return self._native_plan(self._mode)
+        if self._mesh is not None:
+            plan = {"engine": "torch", "backend": self._device.type,
+                    "device": str(self._device), "mode": self._mode,
+                    "precision": self._precision,
+                    "mesh": dict(self._mesh.shape), "sharded": True,
+                    "formulation": ("row+data sharded IRLS (parallel/"
+                                    "sharding.irls_sharded; construction QR "
+                                    "= mesh-native CholeskyQR2)"),
+                    "qr_cached": self._QR_mesh is not None, "kernels": {}}
+            if self._stabilized:
+                plan["stabilized"] = True
+            return plan
         plan = {"engine": "torch", "backend": self._device.type,
                 "device": str(self._device), "mode": self._mode,
                 "precision": self._precision,
@@ -1073,11 +1346,30 @@ class Irls(_Solver):
             plan["stabilized"] = True
         return plan
 
+    def _mesh_qr(self):
+        """The mesh route's construct-once factorization: CholeskyQR2 on
+        the row shards (``qr_sharded``, no host QR), this rank's Q rows
+        and the replicated R, cached (api.py:961-971)."""
+        if self._QR_mesh is None:
+            from .parallel import sharding as _sh
+            self._QR_mesh = _sh._qr_local(self._mesh, self._row_shard())
+        return self._QR_mesh
+
     def _run(self, Y: torch.Tensor, tolerance, max_iterations: int,
              batched: bool):
         """The IRLS loop over the lanes of Y (b, m) at the instance's
-        precision; returns (X (b, n), IrlsReportArrays)."""
+        precision; returns (X (b, n), IrlsReportArrays). With a mesh,
+        ``irls_sharded`` over the mesh's factorization."""
         _check_max_iterations(max_iterations)
+        if self._mesh is not None:
+            from .parallel import sharding as _sh
+            Q, R = self._mesh_qr()
+            newton = "gemm" if self._newton_gemm(batched=True) else "trsm"
+            with _blas.precision_scope(self._precision):
+                return self._mesh_batch(Y, lambda Yl: _sh._irls_placed(
+                    self._mesh, Q, R, Yl, tolerance, max_iterations,
+                    mode=self._mode, newton=newton,
+                    stabilized=self._stabilized))
         Q, R = self._qr()
         r_inv = self._Rinv if self._newton_gemm(batched) else None
         with _blas.precision_scope(self._precision):
@@ -1150,7 +1442,9 @@ class IrlsCg(_Solver):
     ``engine`` "native" runs ``solve`` and ``solve_batch`` on the C++ host
     engine, "auto" does so where m·n ≤ 2¹⁶, and "jax" never. Reports carry
     the reference IRLS fields: solution_error = final ε, spd_failure = an
-    inner-CG curvature breakdown.
+    inner-CG curvature breakdown. ``mesh`` (a ``parallel.sharding.Mesh``)
+    splits A's columns over its "row" axis (placed once, at first use) and
+    routes ``solve*`` through ``irls_cg_sharded`` on the mesh's device.
     """
 
     def __init__(self, A, p: float = 1.0, k_sparsity: int | None = None,
@@ -1176,9 +1470,10 @@ class IrlsCg(_Solver):
             raise ValueError(
                 f"cg_tolerance must be > 0, got {cg_tolerance}")
         if mesh is not None:
-            raise _unported("mesh= (multi-GPU solving)", 10)
+            _check_mesh(mesh, engine)
         self._engine = engine
-        self._load(A, device)
+        self._load(A, device, mesh)
+        self._A_mesh = None  # this rank's columns of A, lazy
         if self._m > self._n:
             raise ValueError(
                 "IrlsCg serves the underdetermined regime (m <= n); for "
@@ -1188,18 +1483,21 @@ class IrlsCg(_Solver):
         self._cg_max = cg_max_iterations
         self._cg_tol = cg_tolerance
         self._precision = precision
-        _warn_small_problem_jax(engine, self._m, self._n, self._device)
+        if mesh is None:
+            _warn_small_problem_jax(engine, self._m, self._n, self._device)
 
     def update_column(self, j: int, col) -> None:
         """Replace column j of the sensing matrix on the solver's device
         (gallery churn, api.py:1246-1259). CG-IRLS is factorization-free,
-        so nothing else needs updating."""
+        so nothing else needs updating; a mesh's placement is made again
+        at the next solve."""
         self._replace_column(j, col)
+        self._A_mesh = None
 
     def _use_native(self, probe: bool = False) -> bool:
         """Whether ``solve``/``solve_batch`` run on the host engine
-        (api.py:1261-1264)."""
-        if self._engine == "jax":
+        (api.py:1261-1264); a mesh never does."""
+        if self._engine == "jax" or self._mesh is not None:
             return False
         return _route_native(self._engine, self._m, self._n, probe,
                              self._device)
@@ -1215,6 +1513,14 @@ class IrlsCg(_Solver):
         façade's keys). No side effects."""
         if self._use_native(probe=True):
             return dict(self._native_plan("cg"), factorization_free=True)
+        if self._mesh is not None:
+            return {"engine": "torch", "backend": self._device.type,
+                    "device": str(self._device), "mode": "cg",
+                    "precision": self._precision, "p": self._p,
+                    "mesh": dict(self._mesh.shape), "sharded": True,
+                    "formulation": ("column+data sharded CG-IRLS "
+                                    "(parallel/sharding.irls_cg_sharded)"),
+                    "factorization_free": True, "kernels": {}}
         return {"engine": "torch", "backend": self._device.type,
                 "device": str(self._device), "mode": "cg",
                 "precision": self._precision, "p": self._p,
@@ -1227,8 +1533,21 @@ class IrlsCg(_Solver):
 
     def _run(self, Y: torch.Tensor, tolerance, max_iterations: int):
         """The CG-IRLS loop over the lanes of Y (b, m) at the instance's
-        precision; returns (X (b, n), IrlsReportArrays)."""
+        precision; returns (X (b, n), IrlsReportArrays). With a mesh,
+        ``irls_cg_sharded`` over this rank's columns, placed once."""
         _check_max_iterations(max_iterations)
+        if self._mesh is not None:
+            from .parallel import sharding as _sh
+            if self._A_mesh is None:
+                self._A_mesh = _sh.shard_columns(self._mesh, self._A)
+            bpad = (-Y.shape[0]) % self._mesh.shape[_sh.DATA_AXIS]
+            Yl = _sh.shard_lanes(self._mesh, torch.nn.functional.pad(
+                Y, (0, 0, 0, bpad)), Y.dtype)
+            with _blas.precision_scope(self._precision):
+                X, rep = _sh._irls_cg_placed(
+                    self._mesh, self._A_mesh, Yl, self._n, tolerance,
+                    max_iterations, **self._host_knobs())
+            return _trim_batch(X, rep, bpad, dense=True)
         with _blas.precision_scope(self._precision):
             return _irls_cg.solve_irls_cg(
                 self._A, Y, tolerance, max_iterations, p=self._p,
@@ -1299,7 +1618,9 @@ class Cosamp(_Solver):
     has no host-engine twin. ``device`` (default "cuda") is where A, its
     transposed copy and every solve live. Reports are ``OmpReport`` /
     ``OmpReportArrays``: iter = rounds committed, solution_error =
-    ‖y − Ax‖₂.
+    ‖y − Ax‖₂. ``mesh`` (a ``parallel.sharding.Mesh``) places A's rows and
+    their transpose once and routes ``solve*`` through ``cosamp_sharded``
+    on the mesh's device.
     """
 
     def __init__(self, A, k_sparsity: int, precision: str = "highest",
@@ -1313,8 +1634,8 @@ class Cosamp(_Solver):
                 "precision must be 'highest', 'high' or 'default', "
                 f"got {precision!r}")
         if mesh is not None:
-            raise _unported("mesh= (multi-GPU solving)", 10)
-        self._load(A, device)
+            _check_mesh(mesh, engine)
+        self._load(A, device, mesh)
         if not isinstance(k_sparsity, int) or k_sparsity < 1:
             raise ValueError(
                 f"k_sparsity must be an int >= 1, got {k_sparsity!r}")
@@ -1327,6 +1648,7 @@ class Cosamp(_Solver):
         self._k = k_sparsity
         self._precision = precision
         self._AT_cache = None
+        self._A_mesh = None  # (this rank's rows of A, their transpose)
 
     def _AT(self) -> torch.Tensor:
         """Aᵀ as a contiguous (n, m) tensor, made once: the rounds gather
@@ -1341,7 +1663,7 @@ class Cosamp(_Solver):
                 max_iterations: int = 20) -> dict:
         """Execution plan for a solve of this configuration (the JAX
         façade's keys). No side effects."""
-        return {"engine": "torch", "backend": self._device.type,
+        plan = {"engine": "torch", "backend": self._device.type,
                 "device": str(self._device), "mode": "cosamp",
                 "precision": self._precision, "k_sparsity": self._k,
                 "union_capacity": _cosamp.union_capacity(self._m, self._n,
@@ -1352,11 +1674,26 @@ class Cosamp(_Solver):
                 # gathers, products, sorts and a batched Cholesky, as the
                 # JAX rounds run no Pallas kernel
                 "kernels": {}}
+        if self._mesh is not None:
+            plan.update(mesh=dict(self._mesh.shape), sharded=True,
+                        formulation=("row+data sharded CoSaMP (all-reduced "
+                                     "proxy + union Gram per round)"))
+        return plan
 
     def _run(self, Y: torch.Tensor, tolerance, max_iterations: int):
         """The rounds over the lanes of Y (b, m) at the instance's
-        precision; returns (X (b, n), OmpReportArrays)."""
+        precision; returns (X (b, n), OmpReportArrays). With a mesh,
+        ``cosamp_sharded`` over this rank's rows, placed once."""
         _check_max_iterations(max_iterations)
+        if self._mesh is not None:
+            from .parallel import sharding as _sh
+            if self._A_mesh is None:
+                A_local = self._row_shard()
+                self._A_mesh = A_local, A_local.T.contiguous()
+            A_local, AT = self._A_mesh
+            return self._mesh_batch(Y, lambda Yl: _sh._cosamp_placed(
+                self._mesh, A_local, Yl, self._k, tolerance, max_iterations,
+                self._precision, self._m, AT=AT))
         with _blas.precision_scope(self._precision):
             return _cosamp.solve_cosamp(self._A, Y, self._k, tolerance,
                                         max_iterations, AT=self._AT())

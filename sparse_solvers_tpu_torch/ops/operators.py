@@ -12,8 +12,11 @@ shared A then multiplies all lanes in one product (``xgemm`` with the
 lanes as rows). Sentinel slots (index n) gather zeros through
 ``active_set.take``, never an out-of-range index.
 
-The row-sharded operators come with multi-GPU solving (ROADMAP.md Queue 1
-item 10).
+The sharded operators are the JAX package's ``RowShardedOperator`` and
+``ColShardedOperator`` over a process group of a mesh
+(``parallel/sharding.py``): each rank holds its shard of A, and every
+product that reduces over the sharded axis ends in one all-reduce over
+the group (``ops/collectives.py``), JAX's ``psum``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..linalg import active_set
-from . import blas
+from . import blas, collectives
 
 
 class DenseOperator(NamedTuple):
@@ -109,3 +112,120 @@ class DenseOperator(NamedTuple):
     def mdot(self, u, v):
         """Inner product of two m-vectors per lane."""
         return blas.xdot(u, v)
+
+
+class ColShardedOperator(NamedTuple):
+    """A column shard of A, A_local (m, n_local), on each rank of
+    ``group``: the layout of the underdetermined (m ≪ n) regime that
+    CG-IRLS serves (solvers/irls_cg.py). x, the weights and Aᵀu stay
+    sharded along n; m-sized quantities (y, the CG iterates) are
+    replicated, so the only collective is one all-reduce per matvec
+    A(D∘Aᵀz), one per CG step."""
+    A_local: torch.Tensor
+    group: object
+
+    @property
+    def dtype(self):
+        return self.A_local.dtype
+
+    def matvec(self, x_local):
+        """A x per lane: x_local (b, n_local) → (b, m), summed over the
+        column shards."""
+        return collectives.all_reduce(
+            blas.xgemm(x_local, self.A_local, trans_b=True), self.group)
+
+    def rmatvec(self, u):
+        """Aᵀ u per lane: u (b, m) → (b, n_local), stays column-sharded."""
+        return blas.xgemm(u, self.A_local)
+
+
+class RowShardedOperator(NamedTuple):
+    """A row shard of A, A_local (m_local, n), on each rank of ``group``;
+    every reduction over rows ends in one all-reduce over the group.
+
+    The m-sized quantities (p = A d, the residual r) stay sharded: only a
+    following rmatvec consumes them, so exactly one collective (the
+    n-sized correlation's) runs per product. ``G`` is the replicated AᵀA,
+    all-reduced once at construction, which turns the inserts and the
+    sparse q = AᵀA·d into local gathers. ``split`` > 1 splits each
+    correlation all-reduce into that many column-block all-reduces (the
+    JAX package's overlap experiment)."""
+    A_local: torch.Tensor
+    group: object
+    G: torch.Tensor | None = None
+    split: int = 1
+
+    @property
+    def _local(self) -> DenseOperator:
+        return DenseOperator(self.A_local, self.G)
+
+    @property
+    def shape(self):
+        # the local shape: callers read n = shape[1], which is global
+        return self.A_local.shape
+
+    @property
+    def dtype(self):
+        return self.A_local.dtype
+
+    @property
+    def has_gram(self):
+        return self.G is not None
+
+    def matvec(self, x):
+        """This shard's rows of A x: stays row-sharded."""
+        return self._local.matvec(x)
+
+    def matvec_sparse(self, x, indices, vals=None):
+        """This shard's rows of A x for x supported on ``indices``."""
+        return self._local.matvec_sparse(x, indices, vals)
+
+    def rmatvec(self, u_local):
+        """Aᵀ u per lane from this shard's rows u_local (b, m_local): the
+        local product and one all-reduce (``split`` of them, one per
+        column block)."""
+        if self.split <= 1:
+            return collectives.all_reduce(self._local.rmatvec(u_local),
+                                          self.group)
+        n = self.A_local.shape[1]
+        step = -(-n // self.split)
+        return torch.cat([
+            collectives.all_reduce(
+                blas.xgemm(u_local, self.A_local[:, i:i + step]), self.group)
+            for i in range(0, n, step)], dim=-1)
+
+    def column(self, j):
+        """This shard's rows of A e_j per lane."""
+        return self._local.column(j)
+
+    def gram_column(self, j):
+        """((AᵀA)[:, j], ‖A e_j‖²): from G, or one all-reduced Gram-column
+        product and one all-reduced norm."""
+        if self.G is not None:
+            return self._local.gram_column(j)
+        v = self.column(j)
+        return (collectives.all_reduce(self._local.rmatvec(v), self.group),
+                collectives.all_reduce(blas.xdot(v, v), self.group))
+
+    def gram_matvec_sparse(self, d, indices, vals=None):
+        """q = AᵀA d via the replicated Gram's columns: no collective."""
+        return self._local.gram_matvec_sparse(d, indices, vals)
+
+    def gram_gathered(self, col, slots):
+        """(u1, vtv) as ``DenseOperator.gram_gathered``: a row of G, or
+        one all-reduced Gram column without it."""
+        if self.G is not None:
+            return self._local.gram_gathered(col, slots)
+        g, vtv = self.gram_column(col)
+        return active_set.take(g, slots, self.A_local.shape[1]), vtv
+
+    def gram_weighted(self, w):
+        """Aᵀ(A ∘ w), summed over the row shards."""
+        return collectives.all_reduce(self._local.gram_weighted(w),
+                                      self.group)
+
+    def mdot(self, u_local, v_local):
+        """Inner product of row-sharded m-vectors: local dot and one
+        all-reduce."""
+        return collectives.all_reduce(blas.xdot(u_local, v_local),
+                                      self.group)

@@ -31,6 +31,12 @@ definite and the round then fails on a non-finite residual, while
 round here. The committed residual is carried from the round that
 committed it: JAX recomputes it from the same gathered columns and values
 with the same product, which gives the same value.
+
+Row-sharded (``axis``, a process group): A and Y are this rank's rows,
+and c = Aᵀr, the union Gram BᵀB, the rhs Bᵀy and ‖r‖² each end in one
+all-reduce over the group; the selections, the S×S Cholesky and the prune
+run replicated on the all-reduced values. ``m_global`` sizes the pool
+clamp by the true row count.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import blas
+from ..ops import blas, collectives
 from .homotopy import _select
 from .omp import OmpReportArrays
 
@@ -70,14 +76,23 @@ def top_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
 
 def solve_cosamp(A: torch.Tensor, Y: torch.Tensor, k_sparsity: int,
                  tolerance, max_iterations: int = 20,
-                 AT: torch.Tensor | None = None):
+                 AT: torch.Tensor | None = None, axis=None,
+                 m_global: int | None = None):
     """CoSaMP for signals Y (b, m), one lane each, over A (m, n); returns
     (X (b, n), OmpReportArrays) with iter = rounds committed and
     solution_error = √‖y − Ax‖². ``AT`` is A's transpose as a contiguous
     (n, m) tensor, from which the union's columns are gathered as rows
     (made here when not given). Products run at the caller's
-    ``blas.precision_scope``."""
-    m, n = A.shape
+    ``blas.precision_scope``. ``axis`` (a process group) runs the rounds
+    row-sharded, with ``m_global`` (required then) the unsharded row
+    count."""
+    m_local, n = A.shape
+    m = m_local
+    if axis is not None:
+        if m_global is None:
+            raise ValueError("axis requires m_global (the unsharded "
+                             "row count, for the pool clamp)")
+        m = m_global
     k = int(k_sparsity)
     if k < 1:
         raise ValueError(f"k_sparsity must be >= 1, got {k_sparsity}")
@@ -94,16 +109,18 @@ def solve_cosamp(A: torch.Tensor, Y: torch.Tensor, k_sparsity: int,
     # the loop's comparisons with tol² happen in the working dtype
     tol_t = torch.tensor(float(tolerance), dtype=dtype)
     tol2 = float(tol_t * tol_t)
+    psum = ((lambda v: collectives.all_reduce(v, axis)) if axis is not None
+            else (lambda v: v))
 
     state = _CState(
         it=torch.zeros(b, dtype=torch.int32, device=dev),
         supp=torch.full((b, k), n, dtype=torch.int32, device=dev),
         vals=torch.zeros((b, k), dtype=dtype, device=dev),
-        r=Y, rss=blas.xdot(Y, Y),
+        r=Y, rss=psum(blas.xdot(Y, Y)),
         done=torch.zeros(b, dtype=torch.bool, device=dev))
 
     def body(s: _CState) -> _CState:
-        c = blas.xgemm(s.r, A)                          # (b, n): (Aᵀr)ᵀ
+        c = psum(blas.xgemm(s.r, A))                    # (b, n): (Aᵀr)ᵀ
         # the 2k largest inactive |c|; the active mask is a scatter whose
         # sentinel slots land in a column that is then dropped, never
         # clamped onto column n − 1
@@ -116,11 +133,11 @@ def solve_cosamp(A: torch.Tensor, Y: torch.Tensor, k_sparsity: int,
         # Bᵀ (b, S, m): the union's columns as rows of AT, zero at
         # sentinel slots
         Bt = AT.index_select(0, omega.clamp(max=n - 1).reshape(-1).long())
-        Bt = Bt.view(b, S, m).masked_fill_(~valid.unsqueeze(-1), 0)
-        G = blas.xgemm(Bt, Bt, trans_b=True)            # (b, S, S)
+        Bt = Bt.view(b, S, m_local).masked_fill_(~valid.unsqueeze(-1), 0)
+        G = psum(blas.xgemm(Bt, Bt, trans_b=True))      # (b, S, S)
         # sentinel diagonal → 1: exact (zero rows/cols elsewhere, rhs 0)
         G.diagonal(dim1=-2, dim2=-1).add_((~valid).to(dtype))
-        rhs = blas.xgemv(Bt, Y)                         # (b, S): Bᵀy
+        rhs = psum(blas.xgemv(Bt, Y))                   # (b, S): Bᵀy
         with blas.precision_scope("highest"):
             L, info = torch.linalg.cholesky_ex((G + G.mT) / 2,
                                                check_errors=False)
@@ -131,9 +148,9 @@ def solve_cosamp(A: torch.Tensor, Y: torch.Tensor, k_sparsity: int,
         pos = top_k_indices(coef.abs(), k)             # (b, k)
         supp2 = omega.gather(1, pos)
         vals2 = coef.gather(1, pos)
-        Bp = Bt.gather(1, pos.unsqueeze(-1).expand(b, k, m))
+        Bp = Bt.gather(1, pos.unsqueeze(-1).expand(b, k, m_local))
         r2 = Y - blas.xgemv(Bp, vals2, trans=True)
-        rss2 = blas.xdot(r2, r2)
+        rss2 = psum(blas.xdot(r2, r2))
 
         # a failed factor, a non-finite or a non-decreasing residual:
         # the previous iterate stands and the lane stops

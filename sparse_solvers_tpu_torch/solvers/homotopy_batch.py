@@ -26,8 +26,18 @@ PyTorch idiom against the JAX form:
   * the precision scope in force when a stepper is made is captured and
     re-entered by its init and body, as JAX captures it at trace time.
 
-Left out here (ROADMAP.md Queue 1): the sharded modes and ``psum`` (item
-10).
+Row-sharded (``axis`` = the row process group of a mesh,
+``parallel/sharding.py``): A and Y are this rank's row shards, and every
+product that reduces over rows (the initial Aᵀy, the q products, the
+gram-free column norms and insert columns) ends in one all-reduce over
+the group (``ops/collectives.py``), JAX's ``psum``. The slot state, the γ
+scan (K2) and the transition (K3) run replicated on every rank of the
+group: they are the same functions of the same all-reduced values, so
+every rank takes the same decisions bit for bit. ``overlap_blocks``
+splits q's all-reduce into column blocks; ``overlap_mode="ppermute"``
+replaces it by the collective-matmul ring (``make_qprod``); ``sync_axes``
+(a process group) makes every rank of it run the same number of loop
+trips, as JAX's ``synced_while``.
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from ..linalg import active_set
-from ..ops import blas
+from ..ops import blas, collectives
 from ..ops.cuda import kernels as _kern
 from ..ops.cuda import scan as _scan
 from ..ops.cuda import transition as _trans
@@ -79,15 +89,80 @@ def route_batch_native(lanes: int | None, n: int, dtype,
             and (lanes == 0 or not sparse))
 
 
-def make_qprod(A: torch.Tensor):
-    """q = AᵀA·D product factory, unsharded (homotopy_batch.py:221-229).
-    The K1 bf16 kernel is on exactly when the scope's precision is
-    "default" (for any shape: the port has no TPU envelope); otherwise the
-    product is two fp32 gemms at the scope's precision."""
+def _identity(v):
+    return v
+
+
+def make_qprod(A: torch.Tensor, psum=_identity, overlap_blocks: int = 1,
+               overlap_mode: str = "psum", axis=None,
+               axis_size: int | None = None):
+    """q = AᵀA·D product factory shared by both batch drivers
+    (homotopy_batch.py:124-229). Unsharded, or in the plain ``psum``
+    form: the K1 bf16 kernel exactly when the scope's precision is
+    "default" (for any shape: the port has no TPU envelope), two products
+    at the scope's precision otherwise, then ``psum`` (the all-reduce over
+    the row shards when sharded).
+
+    ``overlap_blocks`` > 1 (sharded) forces the two-step form and splits
+    the second product into column blocks, each with its own all-reduce:
+    every q element is the same local-row dot and the same reduction as
+    the unsplit form.
+
+    ``overlap_mode="ppermute"`` (sharded; ``axis`` the row group of
+    ``axis_size`` ≥ 2 ranks) is the collective-matmul ring: q's columns
+    split into S = axis_size chunks; at ring step t each rank adds its
+    local partial of chunk (i − t) mod S to the running sum that arrived
+    from its ring predecessor and sends it on (S − 1 ``ring_shift``
+    steps); rank i then holds the reduced chunk (i + 1) mod S, and one
+    all-gather rebuilds q. The sums are in ring-visit order, which may
+    differ from the all-reduce's by ulps."""
+    if overlap_mode not in ("psum", "ppermute"):
+        raise ValueError(
+            f"overlap_mode must be 'psum' or 'ppermute', got {overlap_mode!r}")
+    n = A.shape[1]
+    if overlap_mode == "ppermute":
+        if axis is None or not axis_size or axis_size < 2:
+            raise ValueError(
+                "overlap_mode='ppermute' ring-pipelines the row-shard "
+                "reduction; it needs axis=... with axis_size >= 2 "
+                f"(got axis={axis!r}, axis_size={axis_size})")
+        if overlap_blocks > 1:
+            raise ValueError(
+                "overlap_blocks is the psum-mode knob; the ppermute ring "
+                "always uses S = axis_size chunks")
+        S = axis_size
+        blk = -(-n // S)
+        Ap = F.pad(A, (0, S * blk - n))
+        me = collectives.group_rank(axis)
+
+        def ring(D):
+            p = blas.xgemm(D, A, trans_b=True)         # (b, m_local)
+            acc = None
+            for t in range(S):
+                j = (me - t) % S                        # this step's chunk
+                part = blas.xgemm(p, Ap[:, j * blk:(j + 1) * blk])
+                acc = part if acc is None else acc + part
+                if t < S - 1:
+                    acc = collectives.ring_shift(acc, axis)
+            # rank i holds the reduced chunk (i + 1) mod S
+            got = collectives.all_gather(acc, axis)    # (S, b, blk)
+            return torch.cat([got[(j - 1) % S] for j in range(S)],
+                             dim=1)[:, :n]
+
+        return ring
+    if overlap_blocks > 1:
+        blk = -(-n // overlap_blocks)
+
+        def blocks(D):
+            p = blas.xgemm(D, A, trans_b=True)         # (b, m_local)
+            return torch.cat([psum(blas.xgemm(p, A[:, j0:j0 + blk]))
+                              for j0 in range(0, n, blk)], dim=1)
+
+        return blocks
     if blas.current_precision() == "default":
         A16 = A.to(torch.bfloat16)
-        return lambda D: _kern.normal_matvec_fused_bf16(A16, D)
-    return lambda D: blas.xgemm(blas.xgemm(D, A, trans_b=True), A)
+        return lambda D: psum(_kern.normal_matvec_fused_bf16(A16, D))
+    return lambda D: psum(blas.xgemm(blas.xgemm(D, A, trans_b=True), A))
 
 
 def gram_slot_gather(G: torch.Tensor, idx: torch.Tensor,
@@ -136,21 +211,22 @@ def make_gram_u1(AT: torch.Tensor):
 
 
 def make_insert_column(A: torch.Tensor, G: torch.Tensor | None,
-                       AT: torch.Tensor | None = None):
+                       AT: torch.Tensor | None = None, psum=_identity):
     """The insert's Gram entries, shared by both drivers: ``(gdiag,
     insert_column)`` with ``insert_column(idx, indices)`` → (u1 (b, K),
     vtv (b,)). With a Gram, its diagonal and ``gram_slot_gather``;
     gram-free (``G=None``), the exact f32 column norms Σᵢ A²ᵢⱼ
     (homotopy_batch.py:590, they feed the insert's degeneracy guard) and
     ``make_gram_u1`` over ``AT`` (``transposed_copy(A)``, made here when
-    not given)."""
+    not given), each summed over the row shards by ``psum`` when sharded
+    (u1 in f32, as JAX casts it after the sum)."""
     n = A.shape[1]
     if G is not None:
         return torch.diagonal(G), (
             lambda idx, indices: gram_slot_gather(G, idx, indices, n))
-    gdiag = (A * A).sum(dim=0)
+    gdiag = psum((A * A).sum(dim=0))
     gram_u1 = make_gram_u1(transposed_copy(A) if AT is None else AT)
-    return gdiag, (lambda idx, indices: (gram_u1(idx, indices),
+    return gdiag, (lambda idx, indices: (psum(gram_u1(idx, indices)),
                                          gdiag[idx.long()]))
 
 
@@ -188,6 +264,24 @@ def _plan_tiers(k_max: int, max_iterations: int, ladder) -> list[int]:
     return tiers
 
 
+def synced_while(body, live_fn, state, sync_axes=None):
+    """The drivers' host loop: ``state = body(state)`` while any lane of
+    ``live_fn(state)`` is live (homotopy_batch.py:350-376).
+    ``sync_axes=None``: each rank reads its own lanes (the ranks of a row
+    group hold the same replicated state, so they agree). A process
+    group: the continue flag is all-reduced (MAX) over it each trip, so
+    every rank of it runs the same number of trips; frozen lanes pass
+    through the extra trips unchanged."""
+    while True:
+        live = live_fn(state).any()
+        if sync_axes is not None:
+            live = collectives.all_reduce(live.to(torch.float32).reshape(1),
+                                          sync_axes, op="max") > 0
+        if not bool(live):
+            return state
+        state = body(state)
+
+
 def _embed(s: _BState, K2: int, n: int) -> _BState:
     """Zero-pad a capacity-K1 state into capacity K2 (> K1). Exact: the
     kernels derive slot liveness from kk/indices."""
@@ -203,7 +297,9 @@ def solve_homotopy_batch(A: torch.Tensor, G: torch.Tensor | None,
                          Y: torch.Tensor, tolerance, max_iterations: int,
                          k_max: int, ladder=None, dense: bool = True,
                          record_path: bool = False,
-                         AT: torch.Tensor | None = None):
+                         AT: torch.Tensor | None = None, axis=None,
+                         overlap_blocks: int = 1, overlap_mode: str = "psum",
+                         axis_size: int | None = None, sync_axes=None):
     """Fast-mode batched homotopy — the slot-space throughput driver.
 
     A: (m, n) f32; G = AᵀA (n, n), or None to run gram-free; Y: (b, m), all
@@ -223,7 +319,14 @@ def solve_homotopy_batch(A: torch.Tensor, G: torch.Tensor | None,
     hist_l (b, T))`` with T = max_iterations + 1: row 0 is the λ-max end
     (x = 0, λ0 = ‖Aᵀy‖∞), and each live lane's iteration writes its
     post-transition slot state at row ``it``; frozen lanes write
-    nothing."""
+    nothing.
+
+    ``axis`` (a process group) runs the driver row-sharded: A (m_local,
+    n) and Y (b, m_local) are this rank's rows, G is replicated, and the
+    reductions over rows end in all-reduces over ``axis``.
+    ``overlap_blocks``, ``overlap_mode`` and ``axis_size`` shape the q
+    reduction (``make_qprod``); ``sync_axes`` is a group over which every
+    rank runs the same number of loop trips (``synced_while``)."""
     n = A.shape[1]
     b = Y.shape[0]
     T = max_iterations + 1
@@ -250,18 +353,21 @@ def solve_homotopy_batch(A: torch.Tensor, G: torch.Tensor | None,
         if G is None and AT is None:
             AT = transposed_copy(A)
         init, body, lane_live = make_stepper(
-            A, G, Y, tolerance, max_iterations, Kt, it_cap=cap, AT=AT)
+            A, G, Y, tolerance, max_iterations, Kt, it_cap=cap, AT=AT,
+            axis=axis, overlap_blocks=overlap_blocks,
+            overlap_mode=overlap_mode, axis_size=axis_size)
         state = init() if state is None else _embed(state, Kt, n)
         if record_path:
             hist = _grow_history(hist, state, T, Kt, n)
-        while bool((live := lane_live(state)).any()):
-            state = body(state)
-            if record_path:
-                lanes = live.nonzero()[:, 0]
-                rows = state.it[lanes].long()
-                for h, v in zip(hist, (state.x_act, state.indices,
-                                       state.c_inf)):
+
+            def body(s, _body=body, _live=lane_live):
+                lanes = _live(s).nonzero()[:, 0]
+                s = _body(s)
+                rows = s.it[lanes].long()
+                for h, v in zip(hist, (s.x_act, s.indices, s.c_inf)):
                     h[lanes, rows] = v[lanes]
+                return s
+        state = synced_while(body, lane_live, state, sync_axes)
     if dense:
         out = active_set.scatter(state.x_act, state.indices, n)
     else:
@@ -298,17 +404,26 @@ def densify_batch(values, indices, n: int) -> torch.Tensor:
 
 def make_stepper(A: torch.Tensor, G: torch.Tensor | None, Y: torch.Tensor,
                  tolerance, max_iterations: int, k_max: int,
-                 it_cap: int | None = None, AT: torch.Tensor | None = None):
+                 it_cap: int | None = None, AT: torch.Tensor | None = None,
+                 axis=None, overlap_blocks: int = 1,
+                 overlap_mode: str = "psum", axis_size: int | None = None):
     """Build ``(init, body, lane_live)`` for the batch driver — exposed so
     tests can step the iteration. ``init()`` computes the initial state;
     ``body(s)`` runs one iteration and consumes ``s`` (in-place updates);
     ``lane_live(s)`` is the per-lane do-while condition. ``it_cap``
     freezes lanes at an iteration bound (a capacity-ladder tier). ``G=None``
-    runs gram-free (``make_insert_column``)."""
+    runs gram-free (``make_insert_column``). ``axis`` is the row group of
+    a sharded run; the overlap arguments shape its q reduction
+    (``make_qprod``)."""
     b = Y.shape[0]
     n = A.shape[1]
     K = k_max
     dtype = A.dtype
+    if overlap_blocks > 1 and axis is None:
+        raise ValueError(
+            "overlap_blocks splits the sharded q psum into column-block "
+            "collectives; without a shard axis there is no psum to "
+            "overlap — pass axis=... or overlap_blocks=1")
     if dtype != torch.float32:
         raise ValueError(
             "the batch-native driver is float32 (its kernels are); got "
@@ -318,13 +433,16 @@ def make_stepper(A: torch.Tensor, G: torch.Tensor | None, Y: torch.Tensor,
     prec = blas.current_precision()
     dev = A.device
     bidx = torch.arange(b, device=dev)
-    qprod = make_qprod(A)
-    gdiag, insert_column = make_insert_column(A, G, AT)
+    psum = ((lambda v: collectives.all_reduce(v, axis)) if axis is not None
+            else _identity)
+    qprod = make_qprod(A, psum, overlap_blocks, overlap_mode, axis,
+                       axis_size)
+    gdiag, insert_column = make_insert_column(A, G, AT, psum)
 
     def init() -> _BState:
         # solve_homotopy_core's init, batched (homotopy-cpu.cpp:215-229)
         with blas.precision_scope(prec):
-            C0 = blas.xgemm(Y, A)                  # c0 = Aᵀy per lane
+            C0 = psum(blas.xgemm(Y, A))            # c0 = Aᵀy per lane
         idx0 = torch.argmax(C0.abs(), dim=1).to(torch.int32)
         c0 = _take1(C0, idx0)
         c_inf0 = c0.abs()

@@ -23,6 +23,12 @@ loop gates every write on its live flag. A lane whose outer loop has
 ended skips the inner CG, whose result it would discard. One CG step
 applies B = A D Aᵀ to all lanes as two products, (D ∘ (V A)) Aᵀ, each of
 which streams A once.
+
+Column-sharded (``n_axis``, a process group): each rank holds A's columns
+n_local and x's entries there; m-sized iterates are replicated, so the CG
+dot products stay local; ``matvec`` all-reduces A·(D∘Aᵀz) (one all-reduce
+a CG step), and each outer step all-reduces (MAX) the change's two
+maxima and all-gathers each rank's top K+1 of |x| for the ε rule.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import blas
+from ..ops import blas, collectives
 from .homotopy import _select
 from .irls import IrlsReportArrays
 
@@ -111,11 +117,18 @@ def _cg_solve(body_matvec, Y, Z0, cg_tol2, max_cg: int, dtype,
         state = _select(live, body(state), state)
 
 
-def _kth_largest(v_abs: torch.Tensor, k: int) -> torch.Tensor:
+def _kth_largest(v_abs: torch.Tensor, k: int, group=None) -> torch.Tensor:
     """(k+1)-th largest entry of each lane's |x| (0-based k), clamped to
-    the row length."""
+    the row length; over the column shards of ``group`` when given: each
+    rank's top k+1 are all-gathered (S·(k+1) values a lane) and reduced
+    again (irls_cg.py:122-131)."""
     kk = min(k + 1, v_abs.shape[-1])
-    return torch.topk(v_abs, kk, dim=-1).values[..., -1]
+    top = torch.topk(v_abs, kk, dim=-1).values
+    if group is not None:
+        top = collectives.all_gather(top, group).permute(1, 0, 2).reshape(
+            top.shape[0], -1)
+        top = torch.topk(top, min(k + 1, top.shape[-1]), dim=-1).values
+    return top[..., -1]
 
 
 def solve_irls_cg(A: torch.Tensor, Y: torch.Tensor, tolerance,
@@ -139,16 +152,16 @@ def solve_irls_cg_core(matvec, rmatvec, m: int, n: int, Y, tolerance,
                        k_sparsity: int | None = None,
                        cg_max_iterations: int | None = None,
                        cg_tolerance: float | None = None,
-                       dtype=torch.float32, n_axis: str | None = None):
+                       dtype=torch.float32, n_local: int | None = None,
+                       n_axis=None):
     """CG-IRLS over abstract A products, per lane: ``matvec(X)`` maps
-    (b, n) → (b, m), ``rmatvec(U)`` (b, m) → (b, n). ``k_sparsity`` is the
-    K of the ε-rule (default m // 4; any K at or above the true sparsity
-    preserves recovery, arXiv:1509.04063 §2.2). ``n_axis`` (column
-    sharding) is not ported."""
-    if n_axis is not None:
-        raise NotImplementedError(
-            "n_axis (column-sharded CG-IRLS) is not ported to "
-            "sparse_solvers_tpu_torch yet: ROADMAP.md Queue 1 item 10")
+    (b, n_local) → (b, m), ``rmatvec(U)`` (b, m) → (b, n_local).
+    ``k_sparsity`` is the K of the ε-rule (default m // 4; any K at or
+    above the true sparsity preserves recovery, arXiv:1509.04063 §2.2).
+    For column sharding pass ``n_axis`` (the process group partitioning n;
+    ``matvec`` all-reduces over it, ``ops/operators.py::
+    ColShardedOperator``) and ``n_local``, this rank's column count; ``n``
+    stays the global one."""
     if not (0 < p <= 1.0):
         raise ValueError(f"p must be in (0, 1], got {p}")
     if k_sparsity is not None and k_sparsity < 1:
@@ -160,6 +173,7 @@ def solve_irls_cg_core(matvec, rmatvec, m: int, n: int, Y, tolerance,
             f"cg_max_iterations must be >= 1, got {cg_max_iterations}")
     if cg_tolerance is not None and not cg_tolerance > 0:
         raise ValueError(f"cg_tolerance must be > 0, got {cg_tolerance}")
+    n_local = n if n_local is None else n_local
     K = k_sparsity if k_sparsity is not None else max(1, m // 4)
     max_cg = cg_max_iterations if cg_max_iterations is not None else min(m, 128)
     b, dev = Y.shape[0], Y.device
@@ -187,7 +201,7 @@ def solve_irls_cg_core(matvec, rmatvec, m: int, n: int, Y, tolerance,
 
     state = _OuterState(
         it=full(0, torch.int32), started=full(False, torch.bool),
-        x=full(0, shape=(b, n)), z=full(0, shape=(b, m)), eps=full(1),
+        x=full(0, shape=(b, n_local)), z=full(0, shape=(b, m)), eps=full(1),
         change=full(float("inf")), broke=full(False, torch.bool))
 
     def cond(s: _OuterState) -> torch.Tensor:
@@ -203,8 +217,11 @@ def solve_irls_cg_core(matvec, rmatvec, m: int, n: int, Y, tolerance,
         xabs = xn.abs()
         xmax = xabs.amax(dim=-1)
         dmax = (xn - s.x).abs().amax(dim=-1)
+        if n_axis is not None:
+            xmax, dmax = collectives.all_reduce(
+                torch.stack([xmax, dmax]), n_axis, op="max")
         change = dmax / torch.clamp(xmax, min=tiny)
-        eps = torch.minimum(s.eps, _kth_largest(xabs, K) / n)
+        eps = torch.minimum(s.eps, _kth_largest(xabs, K, n_axis) / n)
         ok = live & ~cg.broke
         okv = ok[:, None]
         return _OuterState(

@@ -29,7 +29,10 @@ PyTorch idiom against the JAX form:
     (kk == K, where JAX's ``.at[].set`` drops the write) writes nothing
     and never touches slot K−1.
 
-Left out here (ROADMAP.md Queue 1): the sharded arguments (item 10).
+Row-sharded (``axis`` = the row process group of a mesh), as the
+Homotopy driver: c₀ = AᵀY, ‖y‖², the q products, the gram-free column
+norms and insert columns and the certificate's ‖r‖² end in all-reduces
+over the group (``ops/collectives.py``); the picks and K4 run replicated.
 """
 
 from __future__ import annotations
@@ -40,10 +43,10 @@ import torch
 import torch.nn.functional as F
 
 from ..linalg import active_set
-from ..ops import blas
+from ..ops import blas, collectives
 from ..ops.cuda import omp_insert as _oins
-from .homotopy_batch import (_plan_tiers, _take1, make_insert_column,
-                             make_qprod)
+from .homotopy_batch import (_identity, _plan_tiers, _take1,
+                             make_insert_column, make_qprod, synced_while)
 from .omp import OmpReportArrays
 
 
@@ -73,21 +76,25 @@ def _embed_omp(s: _OBState, K2: int, n: int) -> _OBState:
         coef=pad2(s.coef), indices=F.pad(s.indices, (0, p), value=n))
 
 
-def l2_certificate(A: torch.Tensor, X: torch.Tensor,
-                   Y: torch.Tensor) -> torch.Tensor:
+def l2_certificate(A: torch.Tensor, X: torch.Tensor, Y: torch.Tensor,
+                   psum=_identity) -> torch.Tensor:
     """ℓ₂ residual certificate ‖y − Ax‖₂ per lane of X (b, n) against
     Y (b, m), at the scope's precision: the driver's post-loop certificate,
     which the façade reports as it is (api.py:1726-1727 of the JAX
-    package). Looked up at call time, so tests can replace it to force
-    certificate failures."""
+    package). Row-sharded, ``psum`` sums ‖r‖² over the shards. Looked up
+    at call time, so tests can replace it to force certificate
+    failures."""
     R = Y - blas.xgemm(X, A, trans_b=True)
-    return torch.sqrt((R * R).sum(dim=1).clamp(min=0))
+    return torch.sqrt(psum((R * R).sum(dim=1)).clamp(min=0))
 
 
 def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
                     Y: torch.Tensor, tolerance, max_iterations: int,
                     k_max: int, ladder=None, dense: bool = True,
-                    picks: int = 1, AT: torch.Tensor | None = None):
+                    picks: int = 1, AT: torch.Tensor | None = None,
+                    axis=None, overlap_blocks: int = 1,
+                    overlap_mode: str = "psum",
+                    axis_size: int | None = None, sync_axes=None):
     """Batched greedy solve; returns (X (b, n), OmpReportArrays).
 
     A: (m, n) f32; G = AᵀA (n, n), or None to run gram-free; Y: (b, m), all
@@ -106,7 +113,11 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
     sub-inserts are skipped individually; a lane whose round commits
     nothing breaks with its solution intact. ``max_iterations`` stays the
     column budget (iter = support size). A tier boundary may split a
-    round, as in the JAX driver."""
+    round, as in the JAX driver.
+
+    ``axis``, ``overlap_blocks``, ``overlap_mode``, ``axis_size`` and
+    ``sync_axes``: the row-sharded run, as ``solve_homotopy_batch``'s;
+    the reported error is then the all-reduced certificate."""
     n = A.shape[1]
     b = Y.shape[0]
     dtype = A.dtype
@@ -114,6 +125,11 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
         raise ValueError(
             "the batch-native OMP driver is float32 (its kernels are); got "
             f"{dtype}")
+    if overlap_blocks > 1 and axis is None:
+        raise ValueError(
+            "overlap_blocks splits the sharded q psum into column-block "
+            "collectives; without a shard axis there is no psum to "
+            "overlap — pass axis=... or overlap_blocks=1")
     dev = A.device
     if b == 0:
         report = OmpReportArrays(
@@ -135,11 +151,14 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
     # honours an ambient "highest"
     cert_prec = ("highest" if blas.current_precision() == "highest"
                  else "high")
+    psum = ((lambda v: collectives.all_reduce(v, axis)) if axis is not None
+            else _identity)
     with blas.precision_scope("highest"):
-        C0 = blas.xgemm(Y, A)
-    yty = (Y * Y).sum(dim=1)
-    qprod = make_qprod(A)
-    _, insert_column = make_insert_column(A, G, AT)
+        C0 = psum(blas.xgemm(Y, A))
+    yty = psum((Y * Y).sum(dim=1))
+    qprod = make_qprod(A, psum, overlap_blocks, overlap_mode, axis,
+                       axis_size)
+    _, insert_column = make_insert_column(A, G, AT, psum)
 
     def lane_live(s: _OBState, it_cap: int | None) -> torch.Tensor:
         live = (~s.broke & ~s.done & (s.it < max_iterations)
@@ -257,13 +276,16 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
                 done=torch.zeros(b, dtype=torch.bool, device=dev))
         else:
             state = _embed_omp(state, Kt, n)
-        while bool(lane_live(state, cap).any()):
-            state = body(state, cap)
+        state = synced_while(lambda s, c=cap: body(s, c),
+                             lambda s, c=cap: lane_live(s, c), state,
+                             sync_axes)
 
     X = active_set.scatter(state.coef, state.indices, n)
-    # the certificate: ‖y − Ax‖₂ per lane from the returned solution
+    # the certificate: ‖y − Ax‖₂ per lane from the returned solution (a
+    # replaced seam takes the unsharded arguments)
     with blas.precision_scope(cert_prec):
-        err = l2_certificate(A, X, Y)
+        err = (l2_certificate(A, X, Y) if axis is None
+               else l2_certificate(A, X, Y, psum))
     report = OmpReportArrays(iter=state.it, solution_error=err)
     if not dense:
         return (state.coef, state.indices), report

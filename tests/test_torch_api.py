@@ -213,7 +213,8 @@ def test_ndview_matches_jax_ndview():
         ndview.as_matrix(np.ones((2, 2), np.complex64))
 
 
-# The route that still raises: multi-GPU solving.
+# mesh= is ported (parallel/sharding.py): what is not a Mesh is refused,
+# as JAX's _check_mesh refuses what is not a jax.sharding.Mesh
 UNPORTED = {
     "mesh": lambda A: pt.Homotopy(A, mesh=object(), device="cpu"),
 }
@@ -222,7 +223,7 @@ UNPORTED = {
 @pytest.mark.parametrize("route", sorted(UNPORTED))
 def test_unported_routes_raise(route):
     A, _, _ = compressive_problem(64, 128, 4, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+    with pytest.raises(ValueError, match="mesh must be a .*Mesh"):
         UNPORTED[route](A)
 
 
@@ -282,7 +283,10 @@ def test_no_jax_import_anywhere_in_the_port():
     assert len(files) > 10
     names = {p.relative_to(ROOT).as_posix() for p in files}
     assert {"sparse_solvers_tpu_torch/backend/native.py",
-            "sparse_solvers_tpu_torch/solvers/cosamp.py"} <= names
+            "sparse_solvers_tpu_torch/solvers/cosamp.py",
+            "sparse_solvers_tpu_torch/ops/collectives.py",
+            "sparse_solvers_tpu_torch/parallel/distributed.py",
+            "sparse_solvers_tpu_torch/parallel/sharding.py"} <= names
     # nor does the port load the JAX package's binding or its library by
     # path (no string outside a docstring names them): the port's host
     # engine builds csrc/ itself

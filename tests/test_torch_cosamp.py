@@ -160,8 +160,9 @@ def test_explain_and_remaining_errors():
     with pytest.raises(ValueError, match="max_iterations must be >= 1"):
         pt.Cosamp(A, 2, device="cpu").solve(np.zeros(8, np.float32),
                                              max_iterations=0)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 10$"):
+    # mesh= is ported: what is not a Mesh is refused, as JAX refuses what
+    # is not a jax.sharding.Mesh
+    with pytest.raises(ValueError, match="mesh must be a .*Mesh"):
         pt.Cosamp(A, 2, mesh=object(), device="cpu")
     plan = pt.Cosamp(A, 2, device="cpu").explain(batch=4)
     want = ss.Cosamp(A, 2).explain(batch=4)

@@ -503,21 +503,20 @@ def test_stabilized_one_sparse_noisy_matches_reference_mode():
     assert int(xr.argmax()) == int(xs.argmax()) == 7
 
 
-# --- routes the port does not have yet, and the device rule ---------------
+# --- mesh= refusals, and the device rule -----------------------------------
 
+# mesh= is ported (parallel/sharding.py): what is not a Mesh is refused, as
+# JAX's _check_mesh refuses what is not a jax.sharding.Mesh
 UNPORTED = {
-    "irls_mesh": (lambda A: pt.Irls(A, mesh=object(), device="cpu"), 10),
-    "irls_cg_mesh": (lambda A: pt.IrlsCg(A.T, mesh=object(), device="cpu"),
-                     10),
+    "irls_mesh": lambda A: pt.Irls(A, mesh=object(), device="cpu"),
+    "irls_cg_mesh": lambda A: pt.IrlsCg(A.T, mesh=object(), device="cpu"),
 }
 
 
 @pytest.mark.parametrize("route", sorted(UNPORTED))
 def test_unported_routes_raise(route):
-    make, item = UNPORTED[route]
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 item {item}$"):
-        make(np.ones((8, 4), np.float32))
+    with pytest.raises(ValueError, match="mesh must be a .*Mesh"):
+        UNPORTED[route](np.ones((8, 4), np.float32))
 
 
 @pytest.mark.parametrize("family,engine", [("irls", "native"),

@@ -245,9 +245,12 @@ def test_core_rejects_what_the_jax_core_rejects():
                        lambda: JCG.solve_irls_cg(jnp.asarray(A),
                                                  jnp.asarray(y), 1e-6, 10,
                                                  **kw), None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10$"):
+    # n_axis (column sharding) is ported: the argument checks come before
+    # the first collective, so a bad argument raises alike on every rank
+    # and no rank waits in an all-reduce
+    with pytest.raises(ValueError, match="p must be in"):
         PCG.solve_irls_cg_core(lambda v: v, lambda u: u, 8, 16, Y, 1e-6, 10,
-                               n_axis="row")
+                               p=0.0, n_local=4, n_axis=object())
 
 
 def test_cg_overflow_breaks_instead_of_nan():
