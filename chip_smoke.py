@@ -5,8 +5,9 @@
 Builds the port's hand-written Hopper kernels from ``sparse_solvers_tpu_torch/
 csrc`` with nvcc and holds each against its plain PyTorch twin on the card
 at the shapes of the main paths (K2 at each Homotopy tier, with ties
-planted across its split chunks; K3 also at K=200, past a block's shared
-memory; K4 at each OMP and gOMP tier; K5 and K6 at b = 8, 64 and 256, at
+planted across its split chunks; K3 at each Homotopy tier, at 200 and
+260 (its device-memory route), on both sides of its route threshold,
+and on insert-only and remove-only mixes, with every vacant slot held at zero; K4 at each OMP and gOMP tier; K5 and K6 at b = 8, 64 and 256, at
 "highest" and "default"; K1 and K2 also at the gram-free paths' shape,
 m=2048, n=65536), each timed beside its bound, with its launch plan; K1's
 line adds its TFLOP/s, its share of its bound, its factor against two
@@ -133,7 +134,7 @@ import torch
 # the seeded numpy cases the card tests use (numpy only, no jax)
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from _torch_cases import (omp_insert_case, scan_split_case,  # noqa: E402
-                          transition_mix)
+                          transition_mix, vacant_nonzero)
 
 M, N, K_SPARSE, BATCH = 4096, 8192, 64, 256
 TOL, K_MAX, MAX_ITER = 1e-2, 96, 128
@@ -146,6 +147,12 @@ FUSED_BATCHES, FUSED_PRECISIONS = (8, 64, 256), ("highest", "default")
 # the capacity tiers of the main paths (solvers/homotopy_batch.py::
 # _plan_tiers): K2 on Homotopy's, K4 on OMP's and gOMP's
 SCAN_TIERS = (24, 48, K_MAX)
+# K3: the Homotopy tiers, the device-memory route, and the capacities on
+# each side of the route threshold (ops/cuda/transition.py::
+# k3_launch_plan); the mixes of its separate timings
+K3_CAPACITIES = SCAN_TIERS + (200, 260)
+K3_THRESHOLDS = (128, 129)
+K3_MIX_CAPACITIES = (K_MAX, 200, 260)
 OMP_TIERS, GOMP_TIERS = (24, 40, OMP_MAX_ITER), (32, 64, GOMP_MAX_ITER)
 # the (b, precision) of K5's and K6's entries in the JSON line; the phase
 # lines give every case
@@ -227,13 +234,14 @@ def time_ms(fn, prepare=None, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
-def device_ms(fn, key: str, prepare=None, calls: int = 10) -> float:
-    """Median device ms of the kernel whose name holds ``key`` over
+def device_ms(fn, keys, prepare=None, calls: int = 10) -> float:
+    """Median device ms of the kernel whose name holds one of ``keys`` over
     ``calls`` calls of ``fn`` under ``utils/profiling.trace`` (``prepare``,
     whose kernels are not counted, runs before each): the kernel's own
     time, without the few µs a pair of CUDA events adds around one launch.
     NaN where the profiler kept no such kernel."""
     from sparse_solvers_tpu_torch.utils import profiling
+    keys = (keys,) if isinstance(keys, str) else tuple(keys)
     for _ in range(3):
         if prepare:
             prepare()
@@ -247,7 +255,7 @@ def device_ms(fn, key: str, prepare=None, calls: int = 10) -> float:
         torch.cuda.synchronize()
     times = [e.device_time_total / 1e3 for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and key in e.name]
+             and any(k in e.name for k in keys)]
     return float(np.median(times)) if times else float("nan")
 
 
@@ -316,7 +324,7 @@ def check_k2(dev, card, K, n=N):
     err = float((gam - gp).abs().max())
     ms = time_ms(lambda: K2.find_max_gamma_fused(*args))
     dms = device_ms(lambda: K2.find_max_gamma_fused(*args),
-                    DEVICE_KERNELS[K2.NAME][0])
+                    DEVICE_KERNELS[K2.NAME])
     plain = time_ms(lambda: K2.find_max_gamma_fused_plain(*args))
     # every input read once (q, c f32; mask int8; c_inf; the slot vectors),
     # gamma and idx written; about 12 fp32 operations per position
@@ -334,25 +342,94 @@ def check_k2(dev, card, K, n=N):
     return result(err, ms, plain, None, b_ms, b_by)
 
 
-def check_k3(dev, card, K):
+def k3_bounds(base, deg):
+    """K3's two bounds on these lanes: ((bound_ms, bound_by), MB) of the
+    least bytes any kernel must move for them, and the same for the
+    formula earlier runs used. The tighter: each live lane reads its kk×kk
+    blocks of inv and gk (a degenerate insert only inv's) and x, d and
+    c_act (u1 too on an insert, indices on a remove, to find p); an
+    insert writes inv's (kk+1)² block, gk's border row and column
+    (2kk+1), x over kk slots (slot kk stays 0), d and c_act through slot
+    kk and one index; a remove writes inv's kk² block, gk's rows and
+    columns p and l (4kk−4 entries, 2kk−1 when p = l), x, d and c_act
+    over kk slots and the indices at p and l (l alone when p = l); a lane
+    that neither inserts nor removes writes x, d and c_act only; 24 bytes
+    of per-lane scalars a live lane, 2 an inert one. Operations: 2kk² a matvec, 3 an
+    updated entry. The earlier formula: 3kk² + 2kk′² + 12kk floats a live
+    lane and 40 bytes a lane, 8kk² operations."""
+    a = [t.cpu().numpy() for t in base]
+    ind, idx, kk = a[5], a[7], a[8].astype(np.int64)
+    live, doins, dorm = a[12], a[13], a[14]
+    deg = deg.cpu().numpy()
+    nbytes = flops = 0
+    for lane, L in enumerate(kk):
+        if not live[lane]:
+            nbytes += 2
+            continue
+        nbytes += 24 + 4 * L * L
+        flops += 2 * L * L
+        if deg[lane]:
+            nbytes += 4 * L
+            continue
+        nbytes += 4 * L * L + 12 * L
+        flops += 2 * L * L
+        if doins[lane]:
+            E = L + 1
+            nbytes += 4 * (L + E * E + 2 * L + 1 + L + 2 * E + 1)
+            flops += 5 * E * E
+        elif dorm[lane]:
+            p = int(np.flatnonzero(ind[lane, :L] == idx[lane])[0])
+            border = 4 * L - 4 if p != L - 1 else 2 * L - 1
+            nbytes += 4 * (L + L * L + border + 3 * L
+                           + (2 if p != L - 1 else 1))
+            flops += 5 * L * L
+        else:
+            nbytes += 12 * L
+            flops += 2 * L * L
+    k_new = np.where(doins, kk + 1, kk - 1)
+    k_new = np.where((doins | dorm) & ~deg & live, k_new, 0)
+    kl = np.where(live, kk, 0)
+    old_bytes = 4 * int((3 * kl ** 2 + 2 * k_new ** 2 + 12 * kl).sum()) \
+        + 40 * len(kk)
+    return ((bound(flops, nbytes, 67e12), nbytes / 1e6),
+            (bound(8 * int((kl ** 2).sum()), old_bytes, 67e12),
+             old_bytes / 1e6))
+
+
+def check_k3(dev, card, K, mix="all"):
+    """K3 at b=256, capacity K, on ``transition_mix``'s lanes (``mix``
+    "all": inserts, removals at p != l and p == l, frozen lanes and a
+    planted degenerate insert; "insert" or "remove": every lane does
+    that): indices and deg exact, frozen and degenerate lanes
+    bit-identical, every vacant slot after the call exactly zero (the
+    sentinel in indices), floats within 1e-5 of each tensor's scale.
+    Timed (CUDA events and the profiler's device time) beside its twin
+    and both bounds (``k3_bounds``), with its launch plan."""
     from sparse_solvers_tpu_torch.ops.cuda import transition as K3
     b, n = BATCH, N
     tol = 0.01
-    base = [torch.from_numpy(a).to(dev) for a in transition_mix(b, K, n)]
+    plan = K3.k3_launch_plan(K)
+    base = [torch.from_numpy(a).to(dev)
+            for a in transition_mix(b, K, n, mix=mix)]
     work = [t.clone() for t in base]
     deg = K3.transition(*work, tol, n)
     ref = K3.transition_plain(*base, tol, n)
     torch.cuda.synchronize()
-    live = base[12]
+    live, doins, dorm = base[12], base[13], base[14]
     check(torch.equal(work[5], ref[5]), "K3: indices differ from the twin")
     check(torch.equal(deg, ref[6]), "K3: deg differs from the twin")
-    check(bool(deg[1]) and int(deg.sum()) == 1,
-          "K3: exactly the planted degenerate insert must flag deg")
+    if mix == "all":
+        check(bool(deg[1]) and int(deg.sum()) == 1,
+              "K3: exactly the planted degenerate insert must flag deg")
     for t, t0 in zip(work[:6], base[:6]):
-        check(torch.equal(t[~live], t0[~live]),
-              "K3: frozen lanes not bit-identical")
-        check(torch.equal(t[1], t0[1]),
-              "K3: degenerate lane not left untouched")
+        check(torch.equal(t[~live | deg], t0[~live | deg]),
+              "K3: frozen or degenerate lanes not bit-identical")
+    kk = base[8].long()
+    kk1 = torch.where(dorm & live, kk - 1,
+                      torch.where(doins & live & ~deg, kk + 1, kk))
+    bad = vacant_nonzero([t.cpu().numpy() for t in work[:6]],
+                         kk1.cpu().numpy(), n)
+    check(not bad, f"K3: vacant slots not zero (lane, tensor): {bad[:8]}")
     err = 0.0
     for name, got, want in zip(("inv", "gk", "x_act", "d_act", "c_act"),
                                work[:5], ref[:5]):
@@ -367,27 +444,42 @@ def check_k3(dev, card, K):
             t.copy_(t0)
 
     ms = time_ms(lambda: K3.transition(*work, tol, n), prepare=restore)
+    dms = device_ms(lambda: K3.transition(*work, tol, n),
+                    DEVICE_KERNELS[K3.NAME], prepare=restore)
     plain = time_ms(lambda: K3.transition_plain(*base, tol, n))
-    counts = {"insert": int(base[13].sum()), "remove": int(base[14].sum()),
-              "frozen": int((~live).sum()), "degenerate": int(deg.sum())}
-    where = ("shared memory" if K3.fits_shared_memory(K, dev)
-             else "device memory, in place")
-    # what these lanes need: each live lane reads its k×k blocks of inv and
-    # gk and the direction update reads inv again; a toggled lane writes
-    # both blocks at their new size k′; about 8·k² operations per lane
-    kk = base[8].long().cpu()
-    toggled = (base[13] | base[14]).cpu() & ~deg.cpu() & live.cpu()
-    k_new = torch.where(base[13].cpu(), kk + 1, kk - 1)
-    k_new = torch.where(toggled, k_new, torch.zeros_like(kk))
-    kl = torch.where(live.cpu(), kk, torch.zeros_like(kk))
-    nbytes = 4 * int((3 * kl ** 2 + 2 * k_new ** 2 + 12 * kl).sum()) + 40 * b
-    b_ms, b_by = bound(8 * int((kl ** 2).sum()), nbytes, 67e12)
-    phase(f"K3 transition b={b} K={K} (inv and gk in {where}): indices and "
-          f"deg exact, frozen lanes bit-identical, floats within 1e-5 "
-          f"relative (max|err| {err:.3e}); lanes {counts}; kernel "
-          f"{ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}) [{card}]")
-    return result(err, ms, plain, None, b_ms, b_by)
+    counts = {"insert": int((doins & ~deg).sum()),
+              "remove": int(dorm.sum()), "frozen": int((~live).sum()),
+              "degenerate": int(deg.sum())}
+    ((b_ms, b_by), mb), ((o_ms, o_by), o_mb) = k3_bounds(base, deg)
+    tile = (f", a thread's tile {4 * plan.cols}x{plan.cols}"
+            if plan.route == "registers" else "")
+    phase(f"K3 transition b={b} K={K} mix={mix}: indices and deg exact, "
+          f"frozen and degenerate lanes bit-identical, vacant slots zero, "
+          f"floats within 1e-5 relative (max|err| {err:.3e}); lanes "
+          f"{counts}; kernel {ms:.4f} ms (its own device time {dms:.4f} "
+          f"ms), twin {plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+          f"{mb:.2f} MB; {100 * b_ms / ms:.1f}% of it in the event time, "
+          f"{100 * b_ms / dms:.1f}% in the device time) [earlier formula "
+          f"{o_ms:.4f} ms, {o_by}, {o_mb:.2f} MB]; plan: route "
+          f"{plan.route}{tile}, {plan.threads} threads, {plan.vec} floats "
+          f"a gk load, {plan.smem_bytes} B shared"
+          f"{', workspace' if plan.work_floats else ''} [{card}]")
+    return result(err, ms, plain, None, float(b_ms), b_by)
+
+
+def k3_phases(dev, card):
+    """check_k3 at each capacity of K3_CAPACITIES and K3_THRESHOLDS, and
+    on insert-only and remove-only mixes at K3_MIX_CAPACITIES. The JSON
+    line keeps the main path's top tier (K=96, mix "all") with the
+    largest error of every phase; its bound_ms is the tighter of
+    ``k3_bounds``' two (the earlier formula's stands on the phase line)."""
+    res = {K: check_k3(dev, card, K) for K in K3_CAPACITIES + K3_THRESHOLDS}
+    errs = [r["max_abs_err"] for r in res.values()]
+    for K in K3_MIX_CAPACITIES:
+        for mix in ("insert", "remove"):
+            errs.append(check_k3(dev, card, K, mix)["max_abs_err"])
+        torch.cuda.empty_cache()
+    return dict(res[K_MAX], max_abs_err=max(errs))
 
 
 def check_k4(dev, card, K):
@@ -413,7 +505,7 @@ def check_k4(dev, card, K):
     ms = time_ms(lambda: K4.omp_insert(inv, *base[1:]),
                  prepare=lambda: inv.copy_(base[0]))
     dms = device_ms(lambda: K4.omp_insert(inv, *base[1:]),
-                    DEVICE_KERNELS[K4.NAME][0],
+                    DEVICE_KERNELS[K4.NAME],
                     prepare=lambda: inv.copy_(base[0]))
     plain = time_ms(lambda: K4.omp_insert_plain(*base))
     # what these lanes need: every lane reads its k×k inverse (u2 and its
@@ -739,7 +831,7 @@ DEVICE_KERNELS = {
     "normal_matvec_fused_bf16": ("round_to_bf16_kernel",
                                  "gemm_bf16_async_kernel"),
     "find_max_gamma_fused": ("gamma_scan_cluster_kernel",),
-    "transition": ("transition_kernel",),
+    "transition": ("transition_regs_kernel", "transition_mem_kernel"),
     "omp_insert": ("omp_insert_rows_kernel",),
 }
 
@@ -1994,14 +2086,13 @@ def main() -> int:
 
     results = {"normal_matvec_fused_bf16": check_k1(dev, card),
                "find_max_gamma_fused": tiered(check_k2, SCAN_TIERS, K_MAX),
-               "transition": check_k3(dev, card, K_MAX)}
+               "transition": k3_phases(dev, card)}
     # K1 and K2 at the gram-free paths' shape (phase lines; the JSON line
     # keeps the main path's)
     gf_m, gf_n, _ = GF_SHAPE
     check_k1(dev, card, gf_m, gf_n)
     check_k2(dev, card, GF_MAX_ITER + 1, gf_n)
     torch.cuda.empty_cache()
-    check_k3(dev, card, 200)
     results["omp_insert"] = tiered(check_k4, OMP_TIERS + GOMP_TIERS,
                                    OMP_MAX_ITER)
     fused_errs = check_k5_k6(dev, card)

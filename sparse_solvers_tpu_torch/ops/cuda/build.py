@@ -41,9 +41,9 @@ _SIGNATURES = {
     # threads, splits, chunk, vec, stream
     "ss_find_max_gamma": (_P,) * 9 + (_I,) * 7 + (_P,),
     # inv, gk, x, d, ca, ind, u1, idx, kk, gamma, vtv, cnew, live, doins,
-    # dorm, deg, work, tol, sentinel, b, K, stream
-    "ss_transition": (_P,) * 17 + (ctypes.c_float, _I, _I, _I, _P),
-    "ss_transition_smem_bytes": (_I,),
+    # dorm, deg, work, tol, sentinel, b, K, route, threads, cols, vec,
+    # shared bytes, stream
+    "ss_transition": (_P,) * 17 + (ctypes.c_float,) + (_I,) * 8 + (_P,),
     # inv, u1, kk, vtv, b_act, doins, coef, deg, b, K, threads, shared,
     # vec, shared bytes, stream
     "ss_omp_insert": (_P,) * 8 + (_I,) * 6 + (_P,),

@@ -2,11 +2,13 @@
 
 Port of ``sparse_solvers_tpu/ops/pallas/transition.py::transition`` (the
 Pallas kernel at :64-295; the math is written out in ``csrc/
-transition.cu``'s header). The CUDA form runs one block per lane with the
-lane's inverse and active Gram in shared memory — or, at a capacity whose
-two matrices do not fit there, on them where they lie in device memory —
-branches per lane, and updates inv, gk, x_act, d_act, c_act and indices
-in place, as the Pallas call aliases them (:279).
+transition.cu``'s header). The CUDA form runs one block per lane on the
+lane's live block only (slots below kk, and slot kk on an insert), holds
+the inverse's block in registers or works on it in place in device
+memory by capacity (``k3_launch_plan``), streams the active Gram once and
+writes it only where it changes, branches per lane, and updates inv, gk,
+x_act, d_act, c_act and indices in place, as the Pallas call aliases
+them (:279).
 
 ``transition_plain`` is its twin: the Pallas body as batched torch ops,
 every lane gated by ``torch.where`` selects (never a 0·x multiply), and
@@ -15,6 +17,8 @@ the slot indices kept as integers.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from .. import dispatch
@@ -22,7 +26,68 @@ from . import build
 
 NAME = "transition"
 _TINY = 256 * 1.1754944e-38   # 256·FLT_MIN: the engines' shared guard
-_SMEM_OPTIN = 232448          # 227 KB: a Hopper block's shared-memory cap
+
+# csrc/transition.cu states the first five (tests/test_torch_k3_plan.py
+# holds them together)
+K3_THREADS = 256              # a block a lane, registers route (8 warps)
+K3_MEM_THREADS = 512          # a block a lane, device routes
+K3_REG_FLOATS = 64            # inv's floats a thread may hold in registers
+K3_VECTORS = 10               # K-vectors staged per lane
+K3_RED_FLOATS = 32            # den's and p's per-warp partials, 16 warps
+SMEM_OPTIN = 232448           # 227 KB: a Hopper block's shared-memory cap
+ROUTES = ("registers", "device")
+
+
+@dataclasses.dataclass(frozen=True)
+class K3Plan:
+    """K3's launch at capacity K: b blocks of ``threads`` threads, one a
+    lane. ``route``: "registers" (K3_THREADS threads, each holding rows w
+    + 8r, r < 4·cols, by columns lane + 32c, c < cols, of the inverse's
+    live block) or "device" (in place in device memory, K3_MEM_THREADS
+    threads). ``vec``: gk's rows load 4 floats at a time (float4) or 1.
+    ``smem_bytes``: the dynamic shared memory the route stages, the
+    K-vectors. ``work_floats``: past the point where even the vectors do
+    not fit (K above 5808), they live in a per-lane device workspace of
+    that many floats; else 0."""
+    route: str
+    cols: int
+    vec: int
+    smem_bytes: int
+    work_floats: int = 0
+
+    @property
+    def threads(self) -> int:
+        return K3_THREADS if self.route == "registers" else K3_MEM_THREADS
+
+    @property
+    def code(self) -> int:
+        """The route's number in ``ss_transition`` (2: device memory with
+        the vectors in the workspace)."""
+        return 2 if self.work_floats else ROUTES.index(self.route)
+
+
+def _vector_floats(K: int) -> int:
+    return K3_VECTORS * (-(-K // 4) * 4) + K3_RED_FLOATS
+
+
+def k3_launch_plan(K: int, aligned: bool = True) -> K3Plan:
+    """The launch of K3 at capacity K. The registers route wherever a
+    thread's tile of the inverse, 4·⌈K/32⌉² floats, fits the register
+    budget K3_REG_FLOATS (K ≤ 128: the Homotopy tiers 24, 48, 96 and the
+    default k_max 101); else the device route, with the vectors in shared
+    memory wherever they fit SMEM_OPTIN. ``aligned``: inv and gk start on
+    16 bytes, so gk's rows load as float4 when K % 4 == 0. No capacity is
+    refused."""
+    if K <= 0:
+        raise ValueError(f"capacity K={K} must be positive")
+    vectors = 4 * _vector_floats(K)
+    cols = -(-K // 32)
+    vec = 4 if aligned and K % 4 == 0 else 1
+    if 4 * cols * cols <= K3_REG_FLOATS:
+        return K3Plan("registers", cols, vec, vectors)
+    if vectors <= SMEM_OPTIN:
+        return K3Plan("device", 0, vec, vectors)
+    return K3Plan("device", 0, vec, 0, _vector_floats(K))
 
 
 def transition_plain(inv, gk, x_act, d_act, c_act, indices, u1, idx, kk,
@@ -108,15 +173,6 @@ def transition_plain(inv, gk, x_act, d_act, c_act, indices, u1, idx, kk,
     return inv_o, gk_o, x_o, d_o, ca_o, ind_o, deg
 
 
-def fits_shared_memory(K: int, device) -> bool:
-    """Whether the kernel stages inv and gk of capacity K in one block's
-    shared memory on ``device`` (leaving room for its static scalars);
-    beyond that it works on them in place in device memory."""
-    cap = getattr(torch.cuda.get_device_properties(device),
-                  "shared_memory_per_block_optin", _SMEM_OPTIN)
-    return build.library().ss_transition_smem_bytes(K) <= cap - 1024
-
-
 def transition(inv, gk, x_act, d_act, c_act, indices, u1, idx, kk, gamma,
                vtv, cnew, live, doins, dorm, tol: float,
                sentinel: int) -> torch.Tensor:
@@ -125,8 +181,11 @@ def transition(inv, gk, x_act, d_act, c_act, indices, u1, idx, kk, gamma,
     f32; idx, kk (b,) int32; gamma, vtv, cnew (b,) f32; live, doins, dorm
     (b,) bool; tol a float; sentinel = n. Returns ``deg`` (b,) bool: the
     lane's insert had a noise-level Schur complement and its state was
-    left untouched (the caller breaks the lane). CUDA tensors launch the
-    hand kernel; CPU tensors run the twin and copy its result back."""
+    left untouched (the caller breaks the lane). The CUDA kernel reads
+    only each lane's live block: every slot ≥ kk must be vacant (zero
+    rows and columns in inv and gk, zero u1, x_act, d_act and c_act, the
+    sentinel in indices), as the driver keeps them. CUDA tensors launch
+    the hand kernel; CPU tensors run the twin and copy its result back."""
     state = (inv, gk, x_act, d_act, c_act, indices)
     args = state + (u1, idx, kk, gamma, vtv, cnew, live, doins, dorm)
     if not dispatch.use_cuda_kernel(*args):
@@ -145,16 +204,19 @@ def transition(inv, gk, x_act, d_act, c_act, indices, u1, idx, kk, gamma,
     deg = torch.empty(b, dtype=torch.bool, device=x_act.device)
     if b == 0 or K == 0:
         return deg.zero_()
+    plan = k3_launch_plan(K, inv.data_ptr() % 16 == 0
+                          and gk.data_ptr() % 16 == 0)
+    work = (torch.empty((b, plan.work_floats), dtype=f32,
+                        device=x_act.device) if plan.work_floats else None)
     lib = build.library()
-    # past shared memory the nine K-vectors live in a device workspace
-    work = (None if fits_shared_memory(K, x_act.device) else
-            torch.empty((b, 9 * K), dtype=f32, device=x_act.device))
     with torch.cuda.device(x_act.device):
         stream = torch.cuda.current_stream(x_act.device).cuda_stream
         rc = lib.ss_transition(*(t.data_ptr() for t in args),
                                deg.data_ptr(),
                                None if work is None else work.data_ptr(),
-                               float(tol), int(sentinel), b, K, stream)
+                               float(tol), int(sentinel), b, K, plan.code,
+                               plan.threads, plan.cols, plan.vec,
+                               plan.smem_bytes, stream)
     build.check(rc, NAME)
     dispatch.launches[NAME] += 1
     return deg

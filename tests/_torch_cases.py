@@ -195,12 +195,14 @@ def transition_case(remove_last, b=8, K=13, n=50):
              doins, dorm), 0.01, n)
 
 
-def transition_mix(b, K, n, seed=3):
+def transition_mix(b, K, n, seed=3, mix="all", k_hi=None):
     """One transition's inputs at a large capacity, active sets of 2 to K−2
-    columns from random SPD Grams: inserts, removals at p != last and
-    p == last, frozen lanes, and lane 1 a degenerate insert (orthonormal
-    active columns, a copy of column 0 inserted: den = 0 exactly). Returns
-    the 15 arrays of ``transition_case``."""
+    columns (below ``k_hi`` when given) from random SPD Grams. ``mix``
+    "all": inserts, removals at p != last and p == last, frozen lanes,
+    and lane 1 a degenerate insert (orthonormal active columns, a copy of
+    column 0 inserted: den = 0 exactly); "insert": every lane inserts;
+    "remove": every lane removes, at p != last and p == last in turn.
+    Returns the 15 arrays of ``transition_case``."""
     rng = np.random.RandomState(seed)
     inv = np.zeros((b, K, K), np.float32)
     gk = np.zeros((b, K, K), np.float32)
@@ -212,8 +214,9 @@ def transition_mix(b, K, n, seed=3):
     live = np.ones(b, bool)
     pres = np.zeros(b, bool)
     rows = K + 32
+    kinds = {"all": (0, 1, 2, 3), "insert": (1,), "remove": (0, 2)}[mix]
     for lane in range(b):
-        k = rng.randint(2, K - 1)
+        k = rng.randint(2, min(K - 1, k_hi or K))
         cols = rng.choice(n, k + 1, replace=False)
         Ag = rng.randn(rows, k + 1) / np.sqrt(rows)
         g = Ag.T @ Ag
@@ -222,7 +225,7 @@ def transition_mix(b, K, n, seed=3):
         ind[lane, :k] = cols[:k]
         xa[lane, :k], da[lane, :k], ca[lane, :k] = rng.randn(3, k)
         kk[lane] = k
-        kind = lane % 4
+        kind = kinds[lane % len(kinds)]
         if kind in (0, 2):                      # remove at p != l / p == l
             pres[lane] = True
             idx[lane] = ind[lane, k - 1 if kind == 2 else rng.randint(k - 1)]
@@ -231,19 +234,107 @@ def transition_mix(b, K, n, seed=3):
             u1[lane, :k] = g[k, :k]
             vtv[lane] = g[k, k]
             live[lane] = kind == 1 or lane % 8 == 3   # half of kind 3 frozen
-    d = 1
-    inv[d], gk[d], ind[d] = 0, 0, n
-    inv[d, 0, 0] = inv[d, 1, 1] = gk[d, 0, 0] = gk[d, 1, 1] = 1.0
-    ind[d, :2] = (0, 1)
-    xa[d], da[d], ca[d], u1[d] = 0, 0, 0, 0
-    xa[d, 0], da[d, 0], ca[d, 0], u1[d, 0] = 0.5, 1.0, 0.3, 1.0
-    kk[d], idx[d], vtv[d], live[d], pres[d] = 2, 5, 1.0, True, False
+    if mix == "all":
+        d = 1
+        inv[d], gk[d], ind[d] = 0, 0, n
+        inv[d, 0, 0] = inv[d, 1, 1] = gk[d, 0, 0] = gk[d, 1, 1] = 1.0
+        ind[d, :2] = (0, 1)
+        xa[d], da[d], ca[d], u1[d] = 0, 0, 0, 0
+        xa[d, 0], da[d, 0], ca[d, 0], u1[d, 0] = 0.5, 1.0, 0.3, 1.0
+        kk[d], idx[d], vtv[d], live[d], pres[d] = 2, 5, 1.0, True, False
     gamma = (rng.rand(b) * 0.1).astype(np.float32)
     cnew = rng.randn(b).astype(np.float32)
     doins = live & ~pres & (kk < K)
     dorm = live & pres
     return (inv, gk, xa, da, ca, ind, u1, idx, kk, gamma, vtv, cnew, live,
             doins, dorm)
+
+
+# the lanes of transition_edge_case, in order
+TRANSITION_EDGES = ("insert at kk=0", "insert at kk=K-1", "remove p=l",
+                    "remove p=0", "remove to empty (p=l=0)",
+                    "remove p=l=K-1 at kk=K", "remove p=0 at kk=K",
+                    "live, no toggle", "frozen")
+
+
+def transition_edge_case(K, n=None, seed=4):
+    """One transition's inputs at capacity K (≥ 3) with a lane for each
+    edge slot of ``TRANSITION_EDGES``: an insert into an empty lane and
+    one at the last slot, removals at p = l, at p = 0, of a lane's only
+    member and at a full lane (p = l = K−1 and p = 0), a live lane that
+    neither inserts nor removes, and a frozen lane. Every vacant slot is
+    zero, as the drivers keep them. Returns the 15 arrays of
+    ``transition_case``, tol and the sentinel n."""
+    n = n or 4 * K + 10
+    rng = np.random.RandomState(seed)
+    b = len(TRANSITION_EDGES)
+    inv = np.zeros((b, K, K), np.float32)
+    gk = np.zeros((b, K, K), np.float32)
+    ind = np.full((b, K), n, np.int32)
+    xa, da, ca, u1 = (np.zeros((b, K), np.float32) for _ in range(4))
+    kk, idx = np.zeros(b, np.int32), np.zeros(b, np.int32)
+    vtv = np.zeros(b, np.float32)
+    doins, dorm = np.zeros(b, bool), np.zeros(b, bool)
+    rows = K + 32
+
+    def state(lane, k):
+        """k live slots; returns the Gram of k + 1 columns (the last one
+        the insert candidate) and their indices."""
+        cols = rng.choice(n, k + 1, replace=False)
+        Ag = rng.randn(rows, k + 1) / np.sqrt(rows)
+        g = Ag.T @ Ag
+        if k:
+            inv[lane, :k, :k] = np.linalg.inv(g[:k, :k])
+            gk[lane, :k, :k] = g[:k, :k]
+            ind[lane, :k] = cols[:k]
+            xa[lane, :k], da[lane, :k], ca[lane, :k] = rng.randn(3, k)
+        kk[lane] = k
+        return g, cols
+
+    for lane, (k, kind, p) in enumerate((
+            (0, "insert", None), (K - 1, "insert", None),
+            (rng.randint(2, K), "remove", "l"), (rng.randint(2, K), "remove", 0),
+            (1, "remove", 0), (K, "remove", "l"), (K, "remove", 0),
+            (rng.randint(1, K), None, None), (rng.randint(1, K), "insert", None))):
+        g, cols = state(lane, k)
+        if kind == "insert":
+            idx[lane] = cols[k]
+            u1[lane, :k] = g[k, :k]
+            vtv[lane] = g[k, k]
+            doins[lane] = True
+        elif kind == "remove":
+            idx[lane] = ind[lane, k - 1 if p == "l" else p]
+            dorm[lane] = True
+        else:
+            idx[lane] = cols[k]        # absent, and the lane does not insert
+    live = np.ones(b, bool)
+    live[-1] = False
+    doins &= live
+    gamma = (rng.rand(b) * 0.1).astype(np.float32)
+    cnew = rng.randn(b).astype(np.float32)
+    return ((inv, gk, xa, da, ca, ind, u1, idx, kk, gamma, vtv, cnew, live,
+             doins, dorm), 0.01, n)
+
+
+def vacant_nonzero(state, kk, sentinel):
+    """The (lane, what) pairs whose vacant slots (≥ kk) are not exactly
+    zero in inv, gk, x_act, d_act and c_act, or hold another index than
+    the sentinel. ``state``: (inv, gk, x_act, d_act, c_act, indices), as
+    numpy arrays."""
+    inv, gk, xa, da, ca, ind = state
+    K = xa.shape[1]
+    bad = []
+    for lane, k in enumerate(np.asarray(kk)):
+        vac = np.arange(K) >= k
+        for name, v in (("x_act", xa), ("d_act", da), ("c_act", ca)):
+            if np.any(v[lane, vac] != 0):
+                bad.append((lane, name))
+        for name, M in (("inv", inv), ("gk", gk)):
+            if np.any(M[lane][vac, :] != 0) or np.any(M[lane][:, vac] != 0):
+                bad.append((lane, name))
+        if np.any(ind[lane, vac] != sentinel):
+            bad.append((lane, "indices"))
+    return bad
 
 
 def omp_insert_case(b, K, seed=0):

@@ -13,7 +13,8 @@ an aligned 256x512x1024 and a bit-identical repeat run. Tolerances: K1
 the fp32 sums run in another order), K2 idx and gamma
 exact (also split across a cluster, with ties planted across its chunk
 boundaries and bases off 16 bytes), K3 indices and deg exact, floats 1e-5 of the tensor's scale, frozen
-lanes bit-identical; K4 deg exact, floats 1e-5 of the tensor's scale,
+lanes bit-identical, vacant slots still zero (edge slots, each route on
+both sides of its threshold, bases off 16 bytes); K4 deg exact, floats 1e-5 of the tensor's scale,
 lanes that are not gated bit-identical; K5 and K6 1e-5·max|ref| at
 "highest" and 1e-3·max|ref| at "default" (bf16 flips of the
 intermediate, as K1), repeat runs bit-identical, shapes that split the
@@ -42,7 +43,8 @@ torch = pytest.importorskip(
 
 from _torch_cases import (compressive_problem, degenerate_case,
                           omp_insert_case, scan_case, scan_split_case,
-                          transition_case, transition_mix)
+                          transition_case, transition_edge_case,
+                          transition_mix, vacant_nonzero)
 
 pytestmark = pytest.mark.cuda
 
@@ -153,42 +155,99 @@ def test_k2_split_scan_matches_twin(dev, n, b, offset):
         assert float(g[b - 1]) == float(np.finfo(np.float32).max)
 
 
-@pytest.mark.parametrize("case", ["remove_p", "remove_last", "degenerate"])
-def test_k3_kernel_matches_twin(dev, case):
+def _k3_run_and_check(dev, arrays, tol, n, offset=0):
+    """K3 on the card against its twin under the kernel's contracts:
+    indices and deg exact; inv, gk, x_act, d_act and c_act within 1e-5
+    of each tensor's scale; frozen and degenerate lanes bit-identical;
+    every vacant slot after the call (≥ kk′) exactly zero, the sentinel
+    in indices. With ``offset`` every operand starts that many elements
+    into its storage (no float4 loads). Returns deg."""
     from sparse_solvers_tpu_torch.ops.cuda import transition as K3
-    arrays, tol, n = (degenerate_case() if case == "degenerate" else
-                      transition_case(case == "remove_last"))
     base = [torch.from_numpy(a).to(dev) for a in arrays]
-    work = [t.clone() for t in base]
+    work = []
+    for t in base:
+        store = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+        work.append(store[offset:].view(t.shape).copy_(t))
     deg = _counted(K3.NAME, lambda: K3.transition(*work, tol, n))
     want = K3.transition_plain(*base, tol, n)
     assert torch.equal(work[5], want[5]) and torch.equal(deg, want[6])
     for got, w in zip(work[:5], want[:5]):
         scale = max(1.0, float(w.abs().max()))
         assert float((got - w).abs().max()) <= 1e-5 * scale
-    untouched = ~base[12] | deg
+    live, doins, dorm = base[12], base[13], base[14]
+    untouched = ~live | deg
     for got, b0 in zip(work[:6], base[:6]):
         assert torch.equal(got[untouched], b0[untouched])
+    kk = base[8].long()
+    kk1 = torch.where(dorm & live, kk - 1,
+                      torch.where(doins & live & ~deg, kk + 1, kk))
+    state = [t.cpu().numpy() for t in work[:6]]
+    assert vacant_nonzero(state, kk1.cpu().numpy(), n) == []
+    return deg
+
+
+@pytest.mark.parametrize("case", ["remove_p", "remove_last", "degenerate"])
+def test_k3_kernel_matches_twin(dev, case):
+    arrays, tol, n = (degenerate_case() if case == "degenerate" else
+                      transition_case(case == "remove_last"))
+    _k3_run_and_check(dev, arrays, tol, n)
 
 
 @pytest.mark.parametrize("K", [200, 260])
 def test_k3_kernel_matches_twin_beyond_shared_memory(dev, K):
     """inv and gk of K=200 and 260 do not fit in a block's shared memory:
-    the kernel works on them in place in device memory."""
+    the kernel works on inv in place in device memory."""
     from sparse_solvers_tpu_torch.ops.cuda import transition as K3
-    n, tol = 1000, 0.01
-    base = [torch.from_numpy(a).to(dev) for a in transition_mix(12, K, n)]
-    work = [t.clone() for t in base]
-    deg = _counted(K3.NAME, lambda: K3.transition(*work, tol, n))
-    want = K3.transition_plain(*base, tol, n)
-    assert torch.equal(work[5], want[5]) and torch.equal(deg, want[6])
+    assert K3.k3_launch_plan(K).route == "device"
+    deg = _k3_run_and_check(dev, transition_mix(12, K, 1000), 0.01, 1000)
     assert bool(deg[1]) and int(deg.sum()) == 1
-    for got, w in zip(work[:5], want[:5]):
-        scale = max(1.0, float(w.abs().max()))
-        assert float((got - w).abs().max()) <= 1e-5 * scale
-    untouched = ~base[12] | deg
-    for got, b0 in zip(work[:6], base[:6]):
-        assert torch.equal(got[untouched], b0[untouched])
+
+
+# capacities on each side of the route threshold (registers → device past
+# 128) and of the register tile's column chunks (32, 64, 96), the Homotopy
+# tiers, the default k_max 101, and the device route up to 260
+K3_CAPACITIES = [3, 13, 24, 32, 33, 48, 64, 65, 96, 97, 101, 128, 129,
+                 200, 236, 237, 260]
+
+
+@pytest.mark.parametrize("K", K3_CAPACITIES)
+def test_k3_edge_slots_match_twin(dev, K):
+    """An insert into an empty lane and at slot K−1, removals at p = l,
+    p = 0, of a lane's only member and at a full lane, a live lane that
+    neither inserts nor removes, a frozen lane."""
+    arrays, tol, n = transition_edge_case(K)
+    deg = _k3_run_and_check(dev, arrays, tol, n)
+    assert not bool(deg.any())
+
+
+@pytest.mark.parametrize("mix", ["all", "insert", "remove"])
+@pytest.mark.parametrize("K", [k for k in K3_CAPACITIES if k >= 5])
+def test_k3_routes_match_twin_at_their_thresholds(dev, K, mix):
+    from sparse_solvers_tpu_torch.ops.cuda import transition as K3
+    route = K3.k3_launch_plan(K).route
+    assert route == ("registers" if K <= 128 else "device")
+    _k3_run_and_check(dev, transition_mix(12, K, 1000, mix=mix), 0.01, 1000)
+
+
+@pytest.mark.parametrize("K", [24, 96, 200, 260])
+def test_k3_unaligned_bases_match_twin(dev, K):
+    """Operands one element into their storage: gk's rows load one float
+    at a time."""
+    from sparse_solvers_tpu_torch.ops.cuda import transition as K3
+    assert K3.k3_launch_plan(K, aligned=False).vec == 1
+    _k3_run_and_check(dev, transition_mix(12, K, 1000), 0.01, 1000,
+                      offset=1)
+
+
+def test_k3_device_route_with_a_workspace_matches_twin(dev):
+    """Past the capacity where even the K-vectors leave shared memory,
+    they live in a per-lane device workspace; small live sets keep the
+    case light."""
+    from sparse_solvers_tpu_torch.ops.cuda import transition as K3
+    K = next(k for k in range(5000, 7000, 4)
+             if K3.k3_launch_plan(k).work_floats)
+    _k3_run_and_check(dev, transition_mix(4, K, 20000, k_hi=40), 0.01,
+                      20000)
 
 
 def test_homotopy_beyond_shared_memory_matches_cpu_twins(dev):

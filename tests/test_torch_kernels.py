@@ -9,7 +9,8 @@ Pallas kernel in interpret mode and through the port:
                                f32 sums in another order)
   K2 find_max_gamma_fused      idx exact, gamma rtol 1e-6
   K3 transition                indices and deg exact, floats atol 1e-5,
-                               frozen lanes bit-identical
+                               frozen lanes bit-identical, vacant slots
+                               exactly zero (also on the edge slots)
 """
 
 import numpy as np
@@ -18,7 +19,8 @@ import pytest
 torch = pytest.importorskip(
     "torch", reason="the port's tests need torch (pip install .[torch])")
 
-from _torch_cases import degenerate_case, scan_case, transition_case
+from _torch_cases import (degenerate_case, scan_case, transition_case,
+                          transition_edge_case, vacant_nonzero)
 from sparse_solvers_tpu.ops.pallas import kernels as JK
 from sparse_solvers_tpu.ops.pallas import scan as JS
 from sparse_solvers_tpu.ops.pallas import transition as JT
@@ -100,6 +102,29 @@ def test_k3_twin_matches_pallas_interpret(remove_last):
         dead = got[5][lane] >= n
         assert np.abs(got[0][lane][dead]).max(initial=0) == 0
         assert np.abs(got[1][lane][dead]).max(initial=0) == 0
+
+
+@pytest.mark.parametrize("K", [3, 8, 13, 33])
+def test_k3_edge_slots_match_pallas_interpret(K):
+    """The edge slots the CUDA kernel's live-block bounds meet (an insert
+    into an empty lane and at slot K−1, removals at p = l, p = 0, of the
+    only member and at a full lane, a lane that neither inserts nor
+    removes, a frozen lane): the twin against the Pallas kernel, and
+    every vacant slot after the call exactly zero in both."""
+    args, tol, n = transition_edge_case(K)
+    want = _jax_transition(args, tol, n)
+    state = [_t(a) for a in args]
+    deg = PT.transition(*state, tol, n)
+    got = [s.numpy() for s in state[:6]]
+    for name, g, w in zip(("inv", "gk", "x_act", "d_act", "c_act"),
+                          got[:5], want[:5]):
+        np.testing.assert_allclose(g, w, atol=1e-5, err_msg=name)
+    np.testing.assert_array_equal(got[5], want[5])
+    np.testing.assert_array_equal(deg.numpy(), want[6])
+    kk = args[8].astype(np.int64)
+    kk1 = np.where(args[14], kk - 1, np.where(args[13], kk + 1, kk))
+    assert vacant_nonzero(got, kk1, n) == []
+    assert vacant_nonzero(want[:6], kk1, n) == []
 
 
 def test_k3_degenerate_insert_flags_and_freezes_lane():

@@ -1,14 +1,21 @@
-"""Time K1, K2, K4, K5 and K6 of the port found under a root directory, on
-the card, as ``chip_smoke.py``'s phases time them: for A/B runs of two
+"""Time K1, K2, K3, K4, K5 and K6 of the port found under a root directory,
+on the card, as ``chip_smoke.py``'s phases time them: for A/B runs of two
 trees.
 
-    python3 tools/time_fused.py [--root DIR] [--kernels k1,k2,k4,k5,k6]
+    python3 tools/time_fused.py [--root DIR]
+        [--kernels k1,k2,k3,k3routes,k4,k5,k6]
 
 Loads ``sparse_solvers_tpu_torch`` from DIR (default: this checkout),
 builds its kernels and prints one line per case: K1 at b=256, m=4096,
-n=8192, K2 at b=256, n=8192 at each Homotopy tier and K4 at b=256 at each
-OMP and gOMP tier (``chip_smoke.time_ms``, the median of 20 calls, on the
-inputs of ``chip_smoke.py``'s checks), K5 and K6 at m=4096, n=8192, b = 8,
+n=8192, K2 at b=256, n=8192 at each Homotopy tier, K3 at b=256 at each
+capacity of ``chip_smoke.py``'s K3 phases (each mix at its capacities;
+the event time and, through the wrapper, the device time of the kernels
+whose names hold "transition"), K3 on each route that can run it at
+``K3_ROUTE_CAPACITIES`` (``k3routes``, not in the default set: the
+plan's route and the device route forced in its place, checked against
+the twin, timed in two rounds, the second in reverse order) and K4 at
+b=256 at each OMP and gOMP tier (``chip_smoke.time_ms``, the median of 20 calls, on the inputs of
+``chip_smoke.py``'s checks), K5 and K6 at m=4096, n=8192, b = 8,
 64, 256, at "highest" and "default" (``utils/profiling.measure``, 10
 back-to-back launches) on ``chip_smoke.fused_case``'s inputs. Run each
 tree in a process of its own, in turns (parent, change, change, parent),
@@ -27,12 +34,71 @@ from pathlib import Path
 import torch
 
 HERE = Path(__file__).resolve().parents[1]
+# the main path's top tier and both sides of K3's route threshold, then
+# the device route further up
+K3_ROUTE_CAPACITIES = (96, 128, 129, 200, 236, 237)
+
+
+def k3_route_plans(K3, K):
+    """Every K3 launch plan that can run capacity K: the registers route
+    where a thread's tile fits its budget, the device route always."""
+    plan = K3.k3_launch_plan(K)
+    plans = {plan.route: plan}
+    if plan.route == "registers":
+        plans["device"] = K3.K3Plan("device", 0, plan.vec,
+                                    4 * K3._vector_floats(K))
+    return plans
+
+
+def time_k3_routes(smoke, dev, tag):
+    from sparse_solvers_tpu_torch.ops.cuda import transition as K3
+    planner = K3.k3_launch_plan
+    try:
+        for k in K3_ROUTE_CAPACITIES:
+            K3.k3_launch_plan = planner
+            base = [torch.from_numpy(a).to(dev) for a in
+                    smoke.transition_mix(smoke.BATCH, k, smoke.N)]
+            ref = K3.transition_plain(*base, 0.01, smoke.N)
+            work = [t.clone() for t in base]
+            plans = k3_route_plans(K3, k)
+
+            def restore():
+                for t, t0 in zip(work, base):
+                    t.copy_(t0)
+
+            def run():
+                K3.transition(*work, 0.01, smoke.N)
+
+            order = sorted(plans)
+            for rnd, routes in enumerate((order, order[::-1])):
+                for route in routes:
+                    K3.k3_launch_plan = (
+                        lambda K, aligned=True, p=plans[route]: p)
+                    restore()
+                    run()
+                    err = max(float((w - r).abs().max())
+                              / max(1.0, float(r.abs().max()))
+                              for w, r in zip(work[:5], ref[:5]))
+                    if not torch.equal(work[5], ref[5]) or err > 1e-5:
+                        raise RuntimeError(f"K3 K={k} route {route}: "
+                                           f"relative err {err}")
+                    ms = smoke.time_ms(run, prepare=restore)
+                    dms = smoke.device_ms(run, ("transition",),
+                                          prepare=restore)
+                    print(f"K3 route b={smoke.BATCH} K={k} {route}"
+                          f"{' (plan)' if route == planner(k).route else ''}"
+                          f" round {rnd}: {ms:.4f} ms, device {dms:.4f} ms,"
+                          f" relative err {err:.2e} {tag}", flush=True)
+            del base, work, ref
+            torch.cuda.empty_cache()
+    finally:
+        K3.k3_launch_plan = planner
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
-    ap.add_argument("--kernels", default="k1,k2,k4,k5,k6")
+    ap.add_argument("--kernels", default="k1,k2,k3,k4,k5,k6")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_fused: torch sees no CUDA device", file=sys.stderr)
@@ -72,6 +138,31 @@ def main() -> int:
             ms = smoke.time_ms(lambda: K2.find_max_gamma_fused(*args))
             print(f"K2 b={smoke.BATCH} n={smoke.N} K={k}: {ms:.4f} ms {tag}",
                   flush=True)
+    if "k3" in wanted:
+        from sparse_solvers_tpu_torch.ops.cuda import transition as K3
+        cases = [(k, "all") for k in smoke.K3_CAPACITIES + smoke.K3_THRESHOLDS]
+        cases += [(k, mix) for k in smoke.K3_MIX_CAPACITIES
+                  for mix in ("insert", "remove")]
+        for k, mix in cases:
+            base = [torch.from_numpy(a).to(dev) for a in
+                    smoke.transition_mix(smoke.BATCH, k, smoke.N, mix=mix)]
+            work = [t.clone() for t in base]
+
+            def restore():
+                for t, t0 in zip(work, base):
+                    t.copy_(t0)
+
+            def run():
+                K3.transition(*work, 0.01, smoke.N)
+
+            ms = smoke.time_ms(run, prepare=restore)
+            dms = smoke.device_ms(run, ("transition",), prepare=restore)
+            print(f"K3 b={smoke.BATCH} K={k} mix={mix}: {ms:.4f} ms, device "
+                  f"{dms:.4f} ms {tag}", flush=True)
+            del base, work
+            torch.cuda.empty_cache()
+    if "k3routes" in wanted:
+        time_k3_routes(smoke, dev, tag)
     if "k4" in wanted:
         from sparse_solvers_tpu_torch.ops.cuda import omp_insert as K4
         for k in smoke.OMP_TIERS + smoke.GOMP_TIERS:
