@@ -107,6 +107,21 @@ equal on both; CG-IRLS supports, no breakdown) and times 5 fenced
 batches of each. The group is destroyed at the end; the mesh routes' launches join
 the JSON line's.
 
+Last, the examples phase (``examples_torch/``), each run one JSON line with
+its wall seconds, its launches and the card's name and power limit: the
+six single-process examples' ``main()`` on the card at their defaults, and
+``batch_recovery`` and ``greedy_pursuit`` again at 4096 8192 64 256 (the
+main path's width, through their own arguments). Each run counts its
+launches from 0 and requires exactly the kernels its plans name (a
+Homotopy driver K1, K2, K3; an OMP driver K1, K4; and those at full
+width), every route on the card, and its numbers: every support
+recovered, 0 failed certificates, the probe's column 7, the lasso path's
+KKT identity and its true support. Then ``sharded_recovery.py`` under
+``torch.distributed.run --standalone --nproc-per-node=1`` (one NCCL rank
+on the card, its own process, killed past a time limit): exit code 0 and
+every "matches" flag True. The in-process runs' launches join the JSON
+line's.
+
 Any failed check raises, so the script exits non-zero and never prints
 its last line. Needs one CUDA card; imports nothing of JAX.
 
@@ -131,10 +146,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+ROOT = Path(__file__).resolve().parent
 # the seeded numpy cases the card tests use (numpy only, no jax)
-sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-from _torch_cases import (omp_insert_case, scan_split_case,  # noqa: E402
-                          transition_mix, vacant_nonzero)
+sys.path.insert(0, str(ROOT / "tests"))
+from _torch_cases import (make_problem, make_sparse_problem,  # noqa: E402
+                          omp_insert_case, scan_split_case, transition_mix,
+                          vacant_nonzero)
 
 M, N, K_SPARSE, BATCH = 4096, 8192, 64, 256
 TOL, K_MAX, MAX_ITER = 1e-2, 96, 128
@@ -708,13 +725,12 @@ def fused_roofline_path(dev, card):
 
 
 def core_paths(dev, card):
-    """The per-lane Homotopy core at full width on bench.make_problem
-    (4096x8192, k=64), each phase with the launch counts read from 0:
-    the core runs no kernel of K1 to K6."""
-    import bench
+    """The per-lane Homotopy core at full width on bench.py's problem
+    (``make_problem``, 4096x8192, k=64), each phase with the launch
+    counts read from 0: the core runs no kernel of K1 to K6."""
     from sparse_solvers_tpu_torch import Homotopy
     from sparse_solvers_tpu_torch.ops import dispatch
-    A, Y = bench.make_problem(M, N, K_SPARSE, 8)
+    A, Y = make_problem(M, N, K_SPARSE, 8)
     sups = true_supports()
 
     def no_launches(what):
@@ -782,7 +798,7 @@ def core_paths(dev, card):
 
     # float64: certified, support exact
     dispatch.reset_launches()
-    A64, Y64 = bench.make_problem(M, N, K_SPARSE, 1, dtype=np.float64)
+    A64, Y64 = make_problem(M, N, K_SPARSE, 1, dtype=np.float64)
     x64, r64 = Homotopy(A64, device=dev).solve(Y64[0], TOL)
     no_launches("float64 solve")
     top = set(np.argsort(-np.abs(x64.cpu().numpy()))[:K_SPARSE].tolist())
@@ -814,8 +830,9 @@ def core_paths(dev, card):
 
 
 def true_supports():
-    """The supports bench.make_problem draws, replayed from its seed in
-    its draw order (A first, then per lane the support and the values)."""
+    """The supports ``make_problem`` (bench.py's problem) draws, replayed
+    from its seed in its draw order (A first, then per lane the support
+    and the values)."""
     rng = np.random.RandomState(0)
     rng.randn(M, N)
     sups = []
@@ -973,10 +990,9 @@ def check_l2_certificate(name, A64, Y, Xh, errs, lanes, k):
 
 
 def main_path(dev, card):
-    import bench
     from sparse_solvers_tpu_torch import Homotopy
 
-    A, Y = bench.make_problem(M, N, K_SPARSE, BATCH)
+    A, Y = make_problem(M, N, K_SPARSE, BATCH)
     solver = Homotopy(A, k_max=K_MAX, precision="certified", device=dev)
     Xh, errs, iters, launches = run_path("homotopy main path", solver, Y,
                                          dev, card, MAX_ITER,
@@ -996,7 +1012,6 @@ def main_path(dev, card):
 def omp_paths(dev, card):
     """The certified OMP and gOMP main paths on benchmarks/bench_omp.py's
     problem (seed 0)."""
-    from benchmarks._common import make_sparse_problem
     from sparse_solvers_tpu_torch import Omp
 
     A, X0, Y = make_sparse_problem(M, N, K_SPARSE, BATCH, seed=0)
@@ -1106,7 +1121,6 @@ def gram_free_paths(dev, card):
     says gram-free, the certified solve_batch is timed and profiled as the
     main paths are, then its re-solve at "high" is forced. Returns the
     summed launch counts."""
-    from benchmarks._common import make_sparse_problem
     from sparse_solvers_tpu_torch import Homotopy, Omp, api
     from sparse_solvers_tpu_torch.solvers import omp_batch
 
@@ -1156,17 +1170,16 @@ def gram_free_paths(dev, card):
 
 
 def omp_core_paths(dev, card):
-    """The per-lane OMP core at full width on bench.make_problem
-    (4096x8192, k=64), each phase with the launch counts read from 0: the
-    core runs no kernel of K1 to K6, as the JAX core reaches no
-    pallas_call. Certified single solves (each certificate against a
-    float64 recompute, as on the driver paths), timed; an 8-lane batch in
-    the small-batch regime; exact against fast at "highest"; float64;
-    gram=True; a gOMP picks=4 single solve."""
-    import bench
+    """The per-lane OMP core at full width on bench.py's problem
+    (``make_problem``, 4096x8192, k=64), each phase with the launch
+    counts read from 0: the core runs no kernel of K1 to K6, as the JAX
+    core reaches no pallas_call. Certified single solves (each
+    certificate against a float64 recompute, as on the driver paths),
+    timed; an 8-lane batch in the small-batch regime; exact against fast
+    at "highest"; float64; gram=True; a gOMP picks=4 single solve."""
     from sparse_solvers_tpu_torch import Omp
     from sparse_solvers_tpu_torch.ops import dispatch
-    A, Y = bench.make_problem(M, N, K_SPARSE, 8)
+    A, Y = make_problem(M, N, K_SPARSE, 8)
     A64 = A.astype(np.float64)
     sups = true_supports()
 
@@ -1257,7 +1270,7 @@ def omp_core_paths(dev, card):
 
     # float64, and a gOMP picks=4 single solve
     dispatch.reset_launches()
-    A64f, Y64 = bench.make_problem(M, N, K_SPARSE, 1, dtype=np.float64)
+    A64f, Y64 = make_problem(M, N, K_SPARSE, 1, dtype=np.float64)
     x64, r64 = Omp(A64f, device=dev).solve(Y64[0], TOL)
     xg, rg = Omp(A, picks=GOMP_PICKS, device=dev).solve(Y[2], TOL)
     no_launches("OMP float64 and gOMP solves")
@@ -1272,9 +1285,8 @@ def omp_core_paths(dev, card):
 
 
 def cross_device(dev):
-    import bench
     from sparse_solvers_tpu_torch import Homotopy, Omp
-    A, Y = bench.make_problem(256, 512, 8, 8, seed=5)
+    A, Y = make_problem(256, 512, 8, 8, seed=5)
     for name, make in (
             ("homotopy", lambda where: Homotopy(A, k_max=64, precision="high",
                                                 device=where)),
@@ -1293,7 +1305,7 @@ def cross_device(dev):
               f"equal {ig.tolist()}, max |X_gpu - X_cpu| {err:.3e}")
     # the per-lane core: a single solve, an 8-lane sparse-regime batch
     # (8·32 < 2m), a float64 solve
-    A64, Y64 = bench.make_problem(256, 512, 8, 8, seed=5, dtype=np.float64)
+    A64, Y64 = make_problem(256, 512, 8, 8, seed=5, dtype=np.float64)
     for name, make, run, atol in (
             ("core solve", lambda w: Homotopy(A, precision="high", device=w),
              lambda s: s.solve(Y[0], 1e-4, 64), 1e-5),
@@ -1379,7 +1391,6 @@ def irls_batch_phase(dev, card):
     2048x1024, exact mode; then 4 lanes solved one by one. Returns the
     first shape's (solver, A, Y) for the later phases."""
     import os
-    from benchmarks._common import make_sparse_problem
     from sparse_solvers_tpu_torch import Irls
     first = None
     for m, n in IRLS_SHAPES:
@@ -1520,7 +1531,6 @@ def irls_cg_phase(dev, card):
     amplitudes in [0.5, 1.5), K = 2k, tol 1e-3): every lane's top-k
     support is the planted one and no lane breaks down. Returns the last
     configuration's (solver, Y on the card, max_outer) for the profile."""
-    from benchmarks._common import make_sparse_problem
     from sparse_solvers_tpu_torch import IrlsCg
     last = None
     for m, n, k, batch, max_outer, cg_max in CG_CONFIGS:
@@ -1660,7 +1670,6 @@ def cosamp_phase(dev, card, m, n, k):
     no launch of K1 to K6 (the counts read from 0); the median of 5 fenced
     batches with its quartiles, the rounds, the peak device memory, then
     one profiled batch."""
-    from benchmarks._common import make_sparse_problem
     from sparse_solvers_tpu_torch import Cosamp
     from sparse_solvers_tpu_torch.ops import dispatch
     name = f"cosamp {m}x{n}"
@@ -1718,7 +1727,6 @@ def cosamp_paths(dev, card):
 def host_case(family, m, n, k, tol):
     """(the façade maker(engine, device, precision) of ``family``, A, Y,
     the truth) for a host-engine case."""
-    from benchmarks._common import make_sparse_problem
     from sparse_solvers_tpu_torch import Homotopy, Irls, IrlsCg, Omp
     if family == "irls":
         A, X0, Y = make_sparse_problem(m, n, k, HOST_BATCH, seed=0)
@@ -1907,8 +1915,6 @@ def mesh_paths(dev, card):
     4096x8192. Ends the group. Returns the summed mesh-route launches."""
     import shutil
     import tempfile
-    import bench
-    from benchmarks._common import make_sparse_problem
     from sparse_solvers_tpu_torch import Cosamp, Homotopy, Irls, IrlsCg, Omp
     from sparse_solvers_tpu_torch.parallel import distributed, sharding
     t0 = time.perf_counter()
@@ -1929,7 +1935,7 @@ def mesh_paths(dev, card):
               f"mesh {mesh}: not an NCCL mesh on {dev}")
         # the main paths' problems: Homotopy on bench.py's, OMP, CoSaMP on
         # benchmarks/bench_omp.py's
-        A, Y = bench.make_problem(M, N, K_SPARSE, BATCH)
+        A, Y = make_problem(M, N, K_SPARSE, BATCH)
         Yd = torch.from_numpy(Y).to(dev)
         sups = true_supports()
         mesh_solver = Homotopy(A, k_max=K_MAX, mesh=mesh)
@@ -2049,6 +2055,145 @@ def mesh_paths(dev, card):
     return launches
 
 
+# the examples (examples_torch/): the six single-process ones at their
+# defaults, then batch_recovery and greedy_pursuit at bench.py's workload
+# through their own arguments; the kernels each run must launch beside
+# those its plans name (Homotopy driver K1, K2, K3; OMP driver K1, K4)
+EXAMPLES = ("batch_recovery", "irls_recovery", "serving_loop",
+            "basis_pursuit", "greedy_pursuit", "lasso_path")
+EXAMPLES_FULL = {"batch_recovery": HOMOTOPY_KERNELS,
+                 "greedy_pursuit": HOMOTOPY_KERNELS + OMP_KERNELS}
+SHARDED_TIMEOUT_S = 300
+
+
+def load_example(name):
+    """``examples_torch/<name>.py`` as a module (its ``main(argv)``
+    returns the numbers it prints)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_example(name, out):
+    """The example's returned numbers: every support recovered, no failed
+    certificate, the probe's column 7, the lasso path's KKT identity."""
+    if name == "batch_recovery":
+        check(out["support_recovered"] == out["batch"]
+              and out["single_solution_error"] <= 1e-2,
+              f"batch_recovery: {out}")
+    elif name == "irls_recovery":
+        check(out["atoms_identified"] == out["batch"],
+              f"irls_recovery: {out}")
+    elif name == "serving_loop":
+        check(out["failed"] == 0 and out["probe_column"] == 7,
+              f"serving_loop: {out}")
+    elif name == "basis_pursuit":
+        check(out["support_recovered"] == out["batch"]
+              and out["max_abs_err"] < 1e-2, f"basis_pursuit: {out}")
+    elif name == "greedy_pursuit":
+        check(all(out[r]["support_recovered"] == out["batch"]
+                  for r in ("omp", "homotopy", "gomp"))
+              and out["omp"]["mean_iterations"] == out["k"],
+              f"greedy_pursuit: {out}")
+    elif name == "lasso_path":
+        # ‖Aᵀ(y−Ax_t)‖∞ = λ_t, recomputed on the host in float32
+        check(out["recovered"] and out["breakpoints"] > 1
+              and out["kkt_err"] <= 1e-4 * out["lambdas"][0],
+              f"lasso_path: {out}")
+
+
+def example_run(name, args, card, expect=()):
+    """One example's ``main(args)`` on the card with the launch counts set
+    to 0 just before and read just after: each kernel its plans name (and
+    each of ``expect``) launched, no other; every route on the card; its
+    numbers checked. One JSON line; returns the launches."""
+    from sparse_solvers_tpu_torch.ops import dispatch
+    module = load_example(name)
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    out = module.main(list(args))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(dispatch.launches)
+    named = set(out["kernels"])
+    check(named >= set(expect), f"example {name} {args}: its plans name "
+          f"{sorted(named)}, not {sorted(expect)}")
+    for kname, count in launches.items():
+        check((count > 0) == (kname in named), f"example {name} {args}: "
+              f"{kname} launched {count} times; its plans name "
+              f"{sorted(named)}")
+    check(set(out["engines"]) == {"torch"}, f"example {name}: engines "
+          f"{out['engines']} (a card façade keeps its work on the card)")
+    check_example(name, out)
+    numbers = {k: v for k, v in out.items()
+               if k not in ("kernels", "engines", "lambdas", "supports")}
+    irls_json(phase="examples", example=name, args=list(args),
+              wall_s=wall, launches=launches, kernels=sorted(named),
+              **numbers, card=card)
+    return launches
+
+
+def sharded_example(card):
+    """``examples_torch/sharded_recovery.py`` under ``torch.distributed.run
+    --standalone --nproc-per-node=1``: one NCCL rank on the card, its own
+    process (and session, killed whole past ``SHARDED_TIMEOUT_S``). Its
+    exit code must be 0 and each of its "matches" flags True."""
+    import os
+    import signal
+    env = {k: v for k, v in os.environ.items()
+           if k != "SS_SHARDED_DEMO_CPU"}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node=1", str(ROOT / "examples_torch" /
+                                   "sharded_recovery.py")],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=SHARDED_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"sharded_recovery ran past {SHARDED_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    for line in out.splitlines():
+        phase(f"  sharded_recovery: {line}")
+    check(proc.returncode == 0, f"sharded_recovery exited "
+          f"{proc.returncode}: {err[-3000:]}")
+    flags = re.findall(r"matches [^:]*: (True|False)", out)
+    check(len(flags) >= 2 and all(f == "True" for f in flags),
+          f"sharded_recovery: matches flags {flags}")
+    check("(cuda, nccl)" in out, "sharded_recovery: not an NCCL mesh on "
+          "the card")
+    irls_json(phase="examples", example="sharded_recovery",
+              launcher="torch.distributed.run --standalone "
+                       "--nproc-per-node=1", wall_s=wall,
+              matches=[f == "True" for f in flags], card=card)
+
+
+def examples_phase(card):
+    """The examples on the card (``example_run``), then the sharded one
+    (``sharded_example``). Returns the summed launches of the in-process
+    runs."""
+    t0 = time.perf_counter()
+    launches = {}
+    runs = [(name, ()) for name in EXAMPLES]
+    runs += [(name, ("4096", "8192", "64", "256")) for name in EXAMPLES_FULL]
+    for name, args in runs:
+        for kname, count in example_run(
+                name, args, card,
+                EXAMPLES_FULL[name] if args else ()).items():
+            launches[kname] = launches.get(kname, 0) + count
+        torch.cuda.empty_cache()
+    sharded_example(card)
+    phase(f"examples took {time.perf_counter() - t0:.2f} s; launches "
+          f"{launches}")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2128,6 +2273,10 @@ def main() -> int:
     # the mesh routes run K1 to K4 behind the collectives: their launches
     # join the JSON line's
     for name, count in mesh_paths(dev, card).items():
+        launches[name] += count
+    # the examples at their defaults and at full width: their launches
+    # join the JSON line's too
+    for name, count in examples_phase(card).items():
         launches[name] += count
     phase(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 

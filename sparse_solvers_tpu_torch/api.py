@@ -226,6 +226,17 @@ def _first_lane(out):
     return out[0]
 
 
+def _resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card is
+    an error, never a silent CPU run."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} but torch sees no CUDA device; pass "
+            "device='cpu' to run the plain PyTorch twins")
+    return dev
+
+
 def _numpy(a) -> np.ndarray:
     """A tensor (any device) or array-like as a host numpy array."""
     if isinstance(a, torch.Tensor):
@@ -247,11 +258,7 @@ class _Solver:
             self._device = mesh.device
             self._A = ndview.as_matrix(A, device="cpu")
         else:
-            self._device = torch.device(device)
-            if self._device.type == "cuda" and not torch.cuda.is_available():
-                raise RuntimeError(
-                    f"device={device!r} but torch sees no CUDA device; pass "
-                    "device='cpu' to run the plain PyTorch twins")
+            self._device = _resolve_device(device)
             self._A = ndview.as_matrix(A, device=self._device)
         self._m, self._n = self._A.shape
         self._A_host = None
@@ -1820,6 +1827,7 @@ def lasso_at_batch(lambdas, values, indices, iters, n: int, lam):
 def reconstruct_signal(A, x, device="cuda") -> np.ndarray:
     """y = A @ x on ``device`` (reference: ss.h:79-84), returned as a
     numpy array."""
+    device = _resolve_device(device)
     A = ndview.as_matrix(A, device=device)
     xv = ndview.as_vector(x, dtype=A.dtype, size=A.shape[1], device=device)
     return _numpy(_blas.xgemv(A, xv))
@@ -1828,4 +1836,5 @@ def reconstruct_signal(A, x, device="cuda") -> np.ndarray:
 def norm_l1(A, device="cuda") -> np.ndarray:
     """L1-normalize the columns of A on ``device`` (reference:
     ss.h:88-93, norms.h), returned as a numpy array."""
-    return _numpy(_norms.l1_columns(ndview.as_matrix(A, device=device)))
+    return _numpy(_norms.l1_columns(ndview.as_matrix(
+        A, device=_resolve_device(device))))

@@ -15,9 +15,10 @@ Under ``torchrun`` the call reads the launcher's environment (``RANK``,
 explicit arguments in place of JAX's ``coordinator_address``,
 ``num_processes`` and ``process_id``: ``init_method``
 (``"tcp://host:port"`` or ``"file:///path"``), ``world_size`` and
-``rank``. The backend follows the device: NCCL where torch sees a card,
-gloo otherwise; each mesh makes its own groups on its device's backend
-(``sharding.make_mesh``).
+``rank``. The default group's backend follows the device: NCCL where
+torch sees a card, gloo otherwise; each mesh makes its own groups on its
+device's backend (``sharding.make_mesh``), and a mesh runs on the card
+unless it is given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -58,8 +59,8 @@ def initialize(init_method: str | None = None,
     arguments: ``torch.distributed.init_process_group`` with them,
     raising on failure as it does. ``backend`` defaults to NCCL where
     torch sees a card and gloo otherwise; ``timeout`` (seconds) bounds
-    every collective of the group. Returns True when the group is (now)
-    initialized."""
+    every collective of the group and of every mesh made on it. Returns
+    True when the group is (now) initialized."""
     if is_initialized():
         return True
     explicit = (init_method is not None or world_size is not None
@@ -74,12 +75,15 @@ def initialize(init_method: str | None = None,
         init_method=init_method or "env://",
         world_size=-1 if world_size is None else world_size,
         rank=-1 if rank is None else rank, **kwargs)
+    _sharding._GROUP_TIMEOUT = kwargs.get("timeout")
     return True
 
 
 def global_mesh(n_row: int | None = None, n_data: int = 1, device=None):
     """A (data, row) mesh over every rank of the group
-    (``sharding.make_mesh``). With ``n_data=1`` every rank joins the row
+    (``sharding.make_mesh``), on this rank's card unless ``device="cpu"``
+    asks for the CPU: without a card and without that, it raises. With
+    ``n_data=1`` every rank joins the row
     axis; ranks fill the grid row-major, so with one process per card and
     ``n_data`` = the number of hosts each data row is one host's cards and
     each row group's all-reduce stays within a host."""

@@ -64,6 +64,11 @@ from ..utils import ndview
 ROW_AXIS = "row"
 DATA_AXIS = "data"
 
+# The collective timeout given to ``distributed.initialize``, which every
+# mesh group takes too (None: torch's default for the backend), so that a
+# rank left waiting on a peer fails in its group as in the default one
+_GROUP_TIMEOUT = None
+
 # Replicated Gram matrices above this size are not built automatically in
 # the sharded solver (n² bytes on every rank)
 _SHARDED_GRAM_AUTO_BYTES = 1 << 30
@@ -76,7 +81,8 @@ class Mesh:
     ``data_group`` (the ranks holding the same rows) and ``world`` (every
     rank). ``shape`` is ``{"data": n_data, "row": n_row}`` as JAX's
     ``Mesh.shape``. The groups run on the device's backend: NCCL on a
-    card, gloo on the CPU. Made by ``make_mesh``."""
+    card, gloo on the CPU, with the collective timeout given to
+    ``distributed.initialize``. Made by ``make_mesh``."""
 
     def __init__(self, n_data: int, n_row: int, device: torch.device):
         self.shape = {DATA_AXIS: n_data, ROW_AXIS: n_row}
@@ -87,16 +93,19 @@ class Mesh:
         self.row_group = self.data_group = None
         for d in range(n_data):
             group = dist.new_group([d * n_row + r for r in range(n_row)],
-                                   backend=self.backend)
+                                   backend=self.backend,
+                                   timeout=_GROUP_TIMEOUT)
             if d == self.data_index:
                 self.row_group = group
         for r in range(n_row):
             group = dist.new_group([d * n_row + r for d in range(n_data)],
-                                   backend=self.backend)
+                                   backend=self.backend,
+                                   timeout=_GROUP_TIMEOUT)
             if r == self.row_index:
                 self.data_group = group
         self.world = dist.new_group(list(range(n_data * n_row)),
-                                    backend=self.backend)
+                                    backend=self.backend,
+                                    timeout=_GROUP_TIMEOUT)
 
     def __repr__(self) -> str:
         return (f"Mesh(data={self.shape[DATA_AXIS]}, "
@@ -117,12 +126,13 @@ def make_mesh(n_row: int | None = None, n_data: int = 1,
     """Build a (data, row) mesh over every rank of the default process
     group (``parallel/distributed.initialize``). ``n_row`` defaults to
     all ranks over ``n_data``; n_data · n_row must equal the group's size.
-    ``device`` defaults to ``cuda:LOCAL_RANK`` where torch sees a card and
-    the CPU otherwise; a CUDA mesh runs NCCL groups (and sets the current
-    device, as NCCL needs before its first collective) and a CPU mesh gloo
-    groups, whatever the default group's backend. Every rank must call
-    this with the same arguments, in the same order as its other
-    ``make_mesh`` calls."""
+    ``device`` defaults to the card, ``cuda:LOCAL_RANK``; where torch sees
+    no card that is an error, as it is for the façades: the CPU is asked
+    for with ``device="cpu"``, never taken silently. A CUDA mesh runs NCCL
+    groups (and sets the current device, as NCCL needs before its first
+    collective) and a CPU mesh gloo groups, whatever the default group's
+    backend. Every rank must call this with the same arguments, in the
+    same order as its other ``make_mesh`` calls."""
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs a process group: call parallel.distributed."
@@ -134,14 +144,12 @@ def make_mesh(n_row: int | None = None, n_data: int = 1,
         raise ValueError(
             f"a (data={n_data}, row={n_row}) mesh needs {n_data * n_row} "
             f"ranks; the process group has {world}")
-    if device is None:
-        device = (f"cuda:{_local_rank()}" if torch.cuda.is_available()
-                  else "cpu")
-    device = torch.device(device)
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                f"device={str(device)!r} but torch sees no CUDA device")
+                f"device={str(device)!r} but torch sees no CUDA device; "
+                "pass device='cpu' to run the mesh on the CPU (gloo)")
         if device.index is None:
             device = torch.device("cuda", _local_rank())
         torch.cuda.set_device(device)

@@ -14,6 +14,46 @@ BIG = float(np.finfo(np.float32).max)
 TORCH_ROUTE = {"engine": "jax", "device": "cpu"}
 
 
+def make_problem(m, n, k, batch, seed=0, dtype=np.float32):
+    """The headline workload's problem, a copy of ``bench.make_problem``
+    (bench.py:33-46) kept here so the port's scripts need neither bench.py
+    nor the JAX side: a Gaussian sensing matrix with unit-L2 columns, drawn
+    and normalized in float64, and k-sparse positive signals. The RNG call
+    order is part of every recorded problem (``compressive_problem`` draws
+    each lane's values before its support, so it is another ensemble).
+    Returns (A, Y) in ``dtype``."""
+    rng = np.random.RandomState(seed)
+    A = rng.randn(m, n).astype(np.float64)
+    A = A / np.linalg.norm(A, axis=0)
+    X = np.zeros((batch, n))
+    for b in range(batch):
+        sup = rng.choice(n, k, replace=False)
+        X[b, sup] = rng.uniform(0.5, 1.0, k)
+    Y = X @ A.T
+    return A.astype(dtype), Y.astype(dtype)
+
+
+def make_sparse_problem(m, n, k, batch, seed=0, signed=False,
+                        amp=(0.5, 1.0)):
+    """The benchmarks' shared ensemble, a copy of ``benchmarks/_common.
+    make_sparse_problem`` (benchmarks/_common.py:17-36): unit-norm-column
+    Gaussian A in float32 with a planted k-sparse ground truth per lane.
+    ``signed`` draws the sign vector before the amplitudes; the RNG call
+    order is part of every recorded problem. Returns (A, X_true, Y)."""
+    rng = np.random.RandomState(seed)
+    A = rng.randn(m, n).astype(np.float32)
+    A /= np.linalg.norm(A, axis=0)
+    X = np.zeros((batch, n), np.float32)
+    for b in range(batch):
+        sup = rng.choice(n, k, replace=False)
+        if signed:
+            a = rng.choice([-1.0, 1.0], k) * rng.uniform(amp[0], amp[1], k)
+        else:
+            a = rng.uniform(amp[0], amp[1], k)
+        X[b, sup] = a
+    return A, X, (X @ A.T).astype(np.float32)
+
+
 def compressive_problem(m, n, k, batch, seed=0):
     """Unit-column gaussian ensemble with k-sparse positive signals (the
     bench.py workload). Returns (A, Y, X) in float32."""

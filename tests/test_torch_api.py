@@ -277,16 +277,30 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stderr
 
 
+EXAMPLES = ("batch_recovery", "irls_recovery", "serving_loop",
+            "basis_pursuit", "greedy_pursuit", "lasso_path",
+            "sharded_recovery")
+
+
 def test_no_jax_import_anywhere_in_the_port():
+    """The package, ``chip_smoke.py``, ``examples_torch/`` and ``tools/``
+    import nothing of JAX or of the JAX package, and neither ``bench`` nor
+    ``benchmarks``: the card's machine has no jax, and the port keeps its
+    own copies of the problem generators (``tests/_torch_cases.py``)."""
     files = sorted((ROOT / "sparse_solvers_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "examples_torch").glob("*.py"))
+    files += sorted((ROOT / "tools").glob("*.py"))
     assert len(files) > 10
     names = {p.relative_to(ROOT).as_posix() for p in files}
     assert {"sparse_solvers_tpu_torch/backend/native.py",
             "sparse_solvers_tpu_torch/solvers/cosamp.py",
             "sparse_solvers_tpu_torch/ops/collectives.py",
             "sparse_solvers_tpu_torch/parallel/distributed.py",
-            "sparse_solvers_tpu_torch/parallel/sharding.py"} <= names
+            "sparse_solvers_tpu_torch/parallel/sharding.py",
+            "tools/mesh_scaling.py", "tools/probe_mesh_collectives.py",
+            "tools/profile_small_solve.py"} <= names
+    assert {f"examples_torch/{e}.py" for e in EXAMPLES} <= names
     # nor does the port load the JAX package's binding or its library by
     # path (no string outside a docstring names them): the port's host
     # engine builds csrc/ itself
@@ -309,5 +323,6 @@ def test_no_jax_import_anywhere_in_the_port():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "sparse_solvers_tpu"), (
+                assert top not in ("jax", "jaxlib", "sparse_solvers_tpu",
+                                   "bench", "benchmarks"), (
                     f"{path.relative_to(ROOT)} imports {name}")

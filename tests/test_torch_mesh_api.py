@@ -260,6 +260,33 @@ def test_distributed_single_process(monkeypatch):
         psh.make_mesh(1, 1, device="cpu")
 
 
+def test_mesh_defaults_to_the_card(monkeypatch, tmp_path):
+    """A mesh runs on the card unless it is given ``device="cpu"``: where
+    torch sees no card, ``make_mesh`` and ``global_mesh`` raise, naming
+    the way to ask for the CPU, as a façade does; asked for, the CPU mesh
+    is built on gloo. The mesh's groups take ``initialize``'s timeout. On
+    a one-rank gloo group through a file store, destroyed at the end."""
+    import datetime
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(psh, "_GROUP_TIMEOUT", None)
+    assert distributed.initialize(init_method=f"file://{tmp_path}/init",
+                                  world_size=1, rank=0, backend="gloo",
+                                  timeout=30)
+    try:
+        assert psh._GROUP_TIMEOUT == datetime.timedelta(seconds=30)
+        for make in (lambda: psh.make_mesh(1, 1), distributed.global_mesh):
+            with pytest.raises(RuntimeError, match="pass device='cpu'"):
+                make()
+        mesh = psh.make_mesh(1, 1, device="cpu")
+        assert mesh.device == torch.device("cpu")
+        assert mesh.backend == "gloo"
+        assert torch.distributed.get_backend(mesh.row_group) == "gloo"
+        assert mesh.shape == {"data": 1, "row": 1}
+    finally:
+        torch.distributed.destroy_process_group()
+    assert not distributed.is_initialized()
+
+
 @pytest.mark.parametrize("mesh", MESHES)
 def test_multi_process_sharded_solve_matches_single_process(runs, mesh):
     """test_distributed.py:44-80 and tests/_dist_child.py: every rank

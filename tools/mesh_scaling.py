@@ -47,6 +47,8 @@ import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+# the seeded problems (tests/_torch_cases.py: numpy only)
+sys.path.insert(0, str(ROOT / "tests"))
 
 RUNS = 5
 
@@ -87,8 +89,7 @@ def main() -> int:
     parser.add_argument("--cpu", action="store_true",
                         help="CPU ranks (gloo) at cut sizes: a rehearsal")
     args = parser.parse_args()
-    from benchmarks._common import make_sparse_problem
-    import bench
+    from _torch_cases import make_problem, make_sparse_problem
     from sparse_solvers_tpu_torch import Homotopy, IrlsCg, Omp
     from sparse_solvers_tpu_torch.ops import collectives, dispatch
     from sparse_solvers_tpu_torch.parallel import distributed, sharding
@@ -113,7 +114,7 @@ def main() -> int:
     M, N, K, B = 4096 // cut, 8192 // cut, 64 // cut, 256 // bcut
     GM, GN, GK = 2048 // cut, 65536 // cut, 16 // cut
     CM, CN, CK, CB = 1024 // cut, 65536 // cut, 24 // cut, 32 // bcut
-    A, Y = bench.make_problem(M, N, K, B)
+    A, Y = make_problem(M, N, K, B)
     rng = np.random.RandomState(0)
     rng.randn(M, N)
     sups = []

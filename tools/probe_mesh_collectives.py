@@ -54,6 +54,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+# the seeded problems (tests/_torch_cases.py: numpy only)
+sys.path.insert(0, str(ROOT / "tests"))
 
 SIZES = (1 << 10, 1 << 15, 1 << 21, 1 << 24)   # float32 elements
 CALLS = 200
@@ -136,8 +138,7 @@ def main() -> int:
         print("probe_mesh_collectives: torch sees no CUDA device",
               file=sys.stderr)
         return 1
-    import bench
-    from benchmarks._common import make_sparse_problem
+    from _torch_cases import make_problem, make_sparse_problem
     from sparse_solvers_tpu_torch import Homotopy, IrlsCg, Omp
     from sparse_solvers_tpu_torch.ops import collectives
     from sparse_solvers_tpu_torch.parallel import distributed, sharding
@@ -171,7 +172,7 @@ def main() -> int:
                                   "avoid_record_streams": os.environ.get(
                                       "TORCH_NCCL_AVOID_RECORD_STREAMS"),
                                   "card": card}), flush=True)
-        A, Y = bench.make_problem(4096, 8192, 64, 256)
+        A, Y = make_problem(4096, 8192, 64, 256)
         A2, _, Y2 = make_sparse_problem(4096, 8192, 64, 256, seed=0)
         A3, _, Y3 = make_sparse_problem(1024, 65536, 24, 32, signed=True,
                                         amp=(0.5, 1.5))

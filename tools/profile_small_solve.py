@@ -38,6 +38,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+# the seeded problems (tests/_torch_cases.py: numpy only)
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tests"))
 
 
 def fenced(fn, runs: int) -> list[float]:
@@ -96,7 +98,7 @@ def profiled(fn) -> dict:
 
 
 def small_solves(dev, card) -> None:
-    from benchmarks._common import make_sparse_problem
+    from _torch_cases import make_sparse_problem
     from sparse_solvers_tpu_torch import Homotopy, IrlsCg, Omp
     A, _, Y = make_sparse_problem(128, 512, 8, 64, seed=0)
     Ac, _, Yc = make_sparse_problem(128, 512, 8, 64, signed=True,
@@ -127,7 +129,7 @@ def small_solves(dev, card) -> None:
 
 
 def gather_forms(dev, card) -> None:
-    from benchmarks._common import make_sparse_problem
+    from _torch_cases import make_sparse_problem
     from sparse_solvers_tpu_torch.ops import blas
     from sparse_solvers_tpu_torch.solvers import cosamp
     for m, n, k in ((4096, 8192, 64), (2048, 65536, 16)):
