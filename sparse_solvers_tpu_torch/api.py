@@ -65,6 +65,7 @@ from .solvers import irls_cg as _irls_cg
 from .solvers import omp as _omp
 from .solvers import omp_batch as _omp_batch
 from .utils import ndview
+from .utils import profiling as _profiling
 
 # Gram matrices above this byte size are not precomputed automatically
 # (n² entries of the dtype's size; 1 GiB ⇒ n ≈ 16384 in float32) —
@@ -216,6 +217,17 @@ def _compact_from_dense(X: torch.Tensor, k_max: int):
     vals = torch.where(keep, X.gather(1, order), torch.zeros_like(X[:, :1]))
     idxs = torch.where(keep, order, torch.full_like(order, n))
     return vals, idxs.to(torch.int32)
+
+
+def _read(t: torch.Tensor, to_host):
+    """``to_host(t)``, a read of a device value that waits for the device:
+    a ``solvers.sync`` span."""
+    with _profiling.span("solvers.sync", what="read"):
+        return to_host(t)
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
 
 
 def _first_lane(out):
@@ -645,14 +657,16 @@ class Homotopy(_GramSolver):
 
         def run(A, G, y, tol):
             Y = y if batch is not None else y[None]
-            out = path(A, G, Y, tol)
+            with _profiling.span("api.path"):
+                out = path(A, G, Y, tol)
             if certified:
-                X, rep = out
-                x = (X if dense else
-                     _homotopy_batch.densify_batch(X[0], X[1], self._n))
-                err = _certified_error(A, x, Y)
-                out = X, rep._replace(solution_error=err.to(
-                    rep.solution_error.dtype))
+                with _profiling.span("api.certify"):
+                    X, rep = out
+                    x = (X if dense else _homotopy_batch.densify_batch(
+                        X[0], X[1], self._n))
+                    err = _certified_error(A, x, Y)
+                    out = X, rep._replace(solution_error=err.to(
+                        rep.solution_error.dtype))
             if batch is None:  # one lane: drop the lane axis
                 out = _first_lane(out)
             return out
@@ -665,6 +679,11 @@ class Homotopy(_GramSolver):
         an (n,) tensor on the solver's device. Under "certified", a
         solution whose certificate misses the tolerance is re-solved at
         "high" (api.py:605-641)."""
+        with _profiling.span("api.solve", precision=self._precision):
+            _profiling.count("api.lanes")
+            return self._solve(b, tolerance, max_iterations)
+
+    def _solve(self, b, tolerance, max_iterations: int):
         y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
                              device=self._device)
         tol = self._tol(tolerance)
@@ -672,8 +691,9 @@ class Homotopy(_GramSolver):
         if self._mesh is not None:
             x, rep = self._mesh_single(y, lambda Y: self._solve_batch_mesh(
                 Y, tol, max_iterations))
-            return x, HomotopyReport(iter=int(rep.iter),
-                                     solution_error=float(rep.solution_error))
+            return x, HomotopyReport(
+                iter=_read(rep.iter, int),
+                solution_error=_read(rep.solution_error, float))
         if self._use_native():
             k_max = self._k_max or min(self._n, max_iterations + 1)
             xn, it, err = _native.homotopy_solve(
@@ -682,14 +702,17 @@ class Homotopy(_GramSolver):
                 iter=it, solution_error=err)
         x, rep = self._fn(max_iterations, batch=None)(self._A, self._G, y,
                                                       tol)
-        it, err = int(rep.iter), float(rep.solution_error)
+        it, err = _read(rep.iter, int), _read(rep.solution_error, float)
         # NaN-safe predicate; a lane that exhausted max_iterations is
         # reported as-is — no precision fixes an iteration budget
         if (self._precision == "certified" and not (err <= tol)
                 and it < max_iterations):
-            x, rep = self._fn(max_iterations, batch=None,
-                              precision="high")(self._A, self._G, y, tol)
-            it, err = int(rep.iter), float(rep.solution_error)
+            with _profiling.span("api.resolve"):
+                _profiling.count("api.resolved_lanes")
+                x, rep = self._fn(max_iterations, batch=None,
+                                  precision="high")(self._A, self._G, y, tol)
+                it = _read(rep.iter, int)
+                err = _read(rep.solution_error, float)
         return x, HomotopyReport(iter=it, solution_error=err)
 
     def solve_on_device(self, y: torch.Tensor, tolerance,
@@ -772,8 +795,13 @@ class Homotopy(_GramSolver):
         ``sparse_solvers_tpu.Homotopy.solve_batch``). Under "certified",
         lanes whose certificate misses the tolerance are re-solved at
         "high" and merged (api.py:754-784)."""
+        with _profiling.span("api.solve_batch", precision=self._precision):
+            return self._solve_batch(B, tolerance, max_iterations, dense)
+
+    def _solve_batch(self, B, tolerance, max_iterations: int, dense: bool):
         Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
                                    device=self._device)
+        _profiling.count("api.lanes", Y.shape[0])
         tol = self._tol(tolerance)
         _check_max_iterations(max_iterations)
         if self._mesh is not None:
@@ -795,19 +823,24 @@ class Homotopy(_GramSolver):
             # as-is (no precision fixes an iteration budget). The re-solve
             # covers the full batch and the merge keeps the fast result
             # wherever the certificate held.
-            errs = rep.solution_error.cpu().numpy()
-            bad = (~(errs <= tol)) & (rep.iter.cpu().numpy()
+            errs = _read(rep.solution_error, _host_array)
+            bad = (~(errs <= tol)) & (_read(rep.iter, _host_array)
                                       < max_iterations)
             if bad.any():
-                Xh, reph = self._fn(max_iterations, batch=Y.shape[0],
-                                    precision="high", dense=dense)(
-                    self._A, self._G, Y, tol)
-                sel = torch.as_tensor(bad, device=self._device)
-                X = _merge_lanes(sel, Xh, X, dense)
-                rep = type(rep)(
-                    iter=torch.where(sel, reph.iter, rep.iter),
-                    solution_error=torch.where(sel, reph.solution_error,
-                                               rep.solution_error))
+                with _profiling.span("api.resolve"):
+                    _profiling.count("api.resolved_lanes", Y.shape[0])
+                    Xh, reph = self._fn(max_iterations, batch=Y.shape[0],
+                                        precision="high", dense=dense)(
+                        self._A, self._G, Y, tol)
+                    # the mask's upload from pageable memory waits for the
+                    # device
+                    with _profiling.span("solvers.sync", what="copy"):
+                        sel = torch.as_tensor(bad, device=self._device)
+                    X = _merge_lanes(sel, Xh, X, dense)
+                    rep = type(rep)(
+                        iter=torch.where(sel, reph.iter, rep.iter),
+                        solution_error=torch.where(
+                            sel, reph.solution_error, rep.solution_error))
         if not dense:
             return X[0], X[1], rep
         return X, rep

@@ -43,6 +43,7 @@ from ..linalg import active_set
 from ..linalg import online_inverse as oinv
 from ..ops import blas
 from ..ops.operators import DenseOperator
+from ..utils import profiling
 
 
 class HomotopyReportArrays(NamedTuple):
@@ -93,7 +94,10 @@ def _find_max_gamma(q, c, x, direction, c_inf, mask, dtype):
     invalid ones take the dtype max (the reference's running-min init,
     :123). ``argmin``'s first occurrence is the reference's leftmost
     minimum. Returns (gamma (b,), idx (b,))."""
-    big = torch.tensor(torch.finfo(dtype).max, dtype=dtype, device=q.device)
+    # the scalar's upload from the host waits for the device
+    with profiling.span("solvers.sync", what="copy"):
+        big = torch.tensor(torch.finfo(dtype).max, dtype=dtype,
+                           device=q.device)
     t_active = -x / direction
     cand_active = torch.where((t_active > 0) & (t_active < big), t_active,
                               big)
@@ -343,11 +347,19 @@ def solve_homotopy_core(op, n: int, Y: torch.Tensor, tolerance,
         return (s.it == 0) | (~s.broke & (s.it < max_iterations)
                               & (s.c_inf > tol))
 
-    while True:
-        live = cond(state)
-        if not bool(live.any()):
-            break
-        state = _select(live, body(state), state)
+    def any_live(live):
+        flag = live.any()
+        with profiling.span("solvers.sync", what="live"):
+            return bool(flag)
+
+    # a trip is the body and the test that decides the next one
+    live = cond(state)
+    go = any_live(live)
+    while go:
+        with profiling.span("solvers.iter"):
+            state = _select(live, body(state), state)
+            live = cond(state)
+            go = any_live(live)
 
     report = HomotopyReportArrays(iter=state.it, solution_error=state.c_inf)
     if record_path:

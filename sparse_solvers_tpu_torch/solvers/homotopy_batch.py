@@ -52,6 +52,7 @@ from ..ops import blas, collectives
 from ..ops.cuda import kernels as _kern
 from ..ops.cuda import scan as _scan
 from ..ops.cuda import transition as _trans
+from ..utils import profiling
 from .homotopy import HomotopyReportArrays, _sign_deadzone
 
 
@@ -271,15 +272,28 @@ def synced_while(body, live_fn, state, sync_axes=None):
     group hold the same replicated state, so they agree). A process
     group: the continue flag is all-reduced (MAX) over it each trip, so
     every rank of it runs the same number of trips; frozen lanes pass
-    through the extra trips unchanged."""
-    while True:
-        live = live_fn(state).any()
+    through the extra trips unchanged. Each trip is a ``solvers.iter``
+    span: the body, then the liveness test that decides the next trip,
+    whose read of the flag is a ``solvers.sync`` span; the first test
+    lies outside them (``utils/profiling``)."""
+    go = _any_live(live_fn, state, sync_axes)
+    while go:
+        with profiling.span("solvers.iter"):
+            state = body(state)
+            go = _any_live(live_fn, state, sync_axes)
+    return state
+
+
+def _any_live(live_fn, state, sync_axes) -> bool:
+    """Whether any lane of ``live_fn(state)`` is live, read on the host
+    (over ``sync_axes``' group when one is given)."""
+    live = live_fn(state).any()
+    with profiling.span("solvers.sync", what="live"):
         if sync_axes is not None:
-            live = collectives.all_reduce(live.to(torch.float32).reshape(1),
-                                          sync_axes, op="max") > 0
-        if not bool(live):
-            return state
-        state = body(state)
+            live = collectives.all_reduce(
+                live.to(torch.float32).reshape(1), sync_axes,
+                op="max") > 0
+        return bool(live)
 
 
 def _embed(s: _BState, K2: int, n: int) -> _BState:
@@ -352,22 +366,24 @@ def solve_homotopy_batch(A: torch.Tensor, G: torch.Tensor | None,
         cap = None if t == len(tiers) - 1 else Kt - 1
         if G is None and AT is None:
             AT = transposed_copy(A)
-        init, body, lane_live = make_stepper(
-            A, G, Y, tolerance, max_iterations, Kt, it_cap=cap, AT=AT,
-            axis=axis, overlap_blocks=overlap_blocks,
-            overlap_mode=overlap_mode, axis_size=axis_size)
-        state = init() if state is None else _embed(state, Kt, n)
-        if record_path:
-            hist = _grow_history(hist, state, T, Kt, n)
+        with profiling.span("solvers.tier", K=Kt):
+            init, body, lane_live = make_stepper(
+                A, G, Y, tolerance, max_iterations, Kt, it_cap=cap, AT=AT,
+                axis=axis, overlap_blocks=overlap_blocks,
+                overlap_mode=overlap_mode, axis_size=axis_size)
+            state = init() if state is None else _embed(state, Kt, n)
+            if record_path:
+                hist = _grow_history(hist, state, T, Kt, n)
 
-            def body(s, _body=body, _live=lane_live):
-                lanes = _live(s).nonzero()[:, 0]
-                s = _body(s)
-                rows = s.it[lanes].long()
-                for h, v in zip(hist, (s.x_act, s.indices, s.c_inf)):
-                    h[lanes, rows] = v[lanes]
-                return s
-        state = synced_while(body, lane_live, state, sync_axes)
+                def body(s, _body=body, _live=lane_live):
+                    with profiling.span("solvers.sync", what="read"):
+                        lanes = _live(s).nonzero()[:, 0]
+                    s = _body(s)
+                    rows = s.it[lanes].long()
+                    for h, v in zip(hist, (s.x_act, s.indices, s.c_inf)):
+                        h[lanes, rows] = v[lanes]
+                    return s
+            state = synced_while(body, lane_live, state, sync_axes)
     if dense:
         out = active_set.scatter(state.x_act, state.indices, n)
     else:
@@ -452,7 +468,10 @@ def make_stepper(A: torch.Tensor, G: torch.Tensor | None, Y: torch.Tensor,
         ds0 = _sign_deadzone(c_inf0, tol) / vtv0
         zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
         mask = torch.zeros((b, n), dtype=torch.int8, device=dev)
-        mask[bidx, idx0.long()] = 1
+        # the scalar 1 is uploaded from the host, which waits for the
+        # device
+        with profiling.span("solvers.sync", what="copy"):
+            mask[bidx, idx0.long()] = 1
         inv, gk = zeros(b, K, K), zeros(b, K, K)
         inv[:, 0, 0] = 1 / vtv0
         gk[:, 0, 0] = vtv0

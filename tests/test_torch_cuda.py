@@ -33,7 +33,10 @@ exact, X within 1e-4 (``Irls`` float32), 1e-5 (``IrlsCg`` float32), 1e-10
 a card façade: CUDA tensors equal to the CPU façade's. A card façade's
 "auto" keeps small problems on the card; the CPU twins of small problems
 pin ``engine="jax"``, as a CPU façade's "auto" would send them to the
-host engine.
+host engine. The span store under the CUDA-only profiler: a span holds the
+device interval of the K1 launch it waited for to within 50 us, and every
+sync that ``torch.cuda.set_sync_debug_mode`` reports in a certified
+``solve_batch`` and ``solve`` is a ``solvers.sync`` span.
 """
 
 import numpy as np
@@ -592,6 +595,95 @@ def test_profiling_measures_on_card(dev):
     if "h100" in torch.cuda.get_device_name(0).lower():
         assert profiling.detect_chip() is profiling.CHIPS["h100"]
         assert 0 < r.fraction_of_peak("highest") < 1
+
+
+def _device_events(prof):
+    """(name, start_ns, end_ns) of every operation the profiler recorded
+    on the card, as perfbench/trace.py reads them."""
+    return [(e.name(), e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+def test_spans_share_the_profilers_clock_on_card(dev):
+    """Under the CUDA-only profiler the benchmark traces with, a span
+    records, and it contains the device interval of the K1 launch it
+    issued and waited for, to within 50 us at each end: spans and device
+    operations lie on one clock."""
+    from sparse_solvers_tpu_torch.ops.cuda import kernels as K1
+    from sparse_solvers_tpu_torch.utils import profiling
+    g = torch.Generator(device=dev).manual_seed(5)
+    A16 = torch.randn(2048, 4096, generator=g, device=dev).to(torch.bfloat16)
+    D = torch.randn(256, 4096, generator=g, device=dev)
+    K1.normal_matvec_fused_bf16(A16, D)         # built and warm
+    torch.cuda.synchronize()
+    profiling.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with profiling.span("k1"):
+            K1.normal_matvec_fused_bf16(A16, D)
+            torch.cuda.synchronize()
+    [call] = profiling.calls()
+    [span] = call.spans
+    kernels = [e for e in _device_events(prof)
+               if "gemm_bf16_async_kernel" in e[0]
+               or "round_to_bf16_kernel" in e[0]]
+    assert len(kernels) == 3, kernels
+    slack = 50_000
+    assert span.start_ns - slack <= min(e[1] for e in kernels)
+    assert max(e[2] for e in kernels) <= span.end_ns + slack
+
+
+@pytest.mark.parametrize("gram,resolve", [(True, False), (False, False),
+                                          (True, True)])
+def test_every_sync_of_a_solve_is_a_sync_span(dev, gram, resolve,
+                                              monkeypatch):
+    """Under torch's sync debug mode, a certified ``solve_batch`` and a
+    ``solve`` at test size (with a Gram and without; with lane 0's
+    certificate forced to miss, so that both re-solve at "high") warn once
+    for every synchronisation they make, and they record exactly as many
+    ``solvers.sync`` spans."""
+    import warnings
+    from sparse_solvers_tpu_torch import Homotopy
+    from sparse_solvers_tpu_torch import api as papi
+    from sparse_solvers_tpu_torch.utils import profiling
+    A, Y, _ = compressive_problem(256, 512, 8, 16, seed=3)
+    solver = Homotopy(A, k_max=48, gram=gram, device=dev)
+    Yd = torch.as_tensor(Y, device=dev)
+    if resolve:
+        real = papi._certified_error
+
+        def miss_lane_0(A, x, y):
+            err = real(A, x, y)
+            # no index put of a host scalar, which would sync itself
+            lane = torch.arange(err.shape[0], device=err.device)
+            return torch.where(lane == 0, 1.0, err)
+        monkeypatch.setattr(papi, "_certified_error", miss_lane_0)
+    for _ in range(2):                # built, warm, Gram or copy made
+        solver.solve_batch(Yd, 0.01, 64)
+        solver.solve(Yd[0], 0.01, 64)
+    torch.cuda.synchronize()
+    profiling.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                solver.solve_batch(Yd, 0.01, 64)
+                solver.solve(Yd[0], 0.01, 64)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    calls = profiling.calls()
+    assert [c.spans[-1].name for c in calls] == ["api.solve_batch",
+                                                 "api.solve"]
+    assert all(bool(c.counters.get("api.resolved_lanes")) == resolve
+               for c in calls)
+    spans = [s for c in calls for s in c.spans if s.name == "solvers.sync"]
+    assert len(syncs) == len(spans), sorted(
+        (w.filename.split("/")[-1], w.lineno) for w in syncs)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
