@@ -22,7 +22,9 @@ batched ``lax.while_loop``'s:
   * ``lax.cond`` becomes a per-lane select over both branches, as under
     vmap, so a broken lane's toggle still runs on the virtual orthogonal
     column (u1 = 0, vᵀv = 1) and no 1/0 enters its inverse;
-  * the loop reads ``any(live)`` on the host once per iteration.
+  * the loop reads ``any(live)`` on the host once per iteration; on a
+    card with a dense operator every trip after the first replays one
+    CUDA graph (``homotopy_batch.graphed_while``).
 
 Two modes, as in the JAX package: ``"exact"`` recomputes c = Aᵀ(y − Ax)
 and q = Aᵀ(A d) as full dense products each iteration (K6's and K5's
@@ -43,7 +45,6 @@ from ..linalg import active_set
 from ..linalg import online_inverse as oinv
 from ..ops import blas
 from ..ops.operators import DenseOperator
-from ..utils import profiling
 
 
 class HomotopyReportArrays(NamedTuple):
@@ -94,10 +95,9 @@ def _find_max_gamma(q, c, x, direction, c_inf, mask, dtype):
     invalid ones take the dtype max (the reference's running-min init,
     :123). ``argmin``'s first occurrence is the reference's leftmost
     minimum. Returns (gamma (b,), idx (b,))."""
-    # the scalar's upload from the host waits for the device
-    with profiling.span("solvers.sync", what="copy"):
-        big = torch.tensor(torch.finfo(dtype).max, dtype=dtype,
-                           device=q.device)
+    # filled on the device: an upload from the host would wait for it
+    big = torch.full((), torch.finfo(dtype).max, dtype=dtype,
+                     device=q.device)
     t_active = -x / direction
     cand_active = torch.where((t_active > 0) & (t_active < big), t_active,
                               big)
@@ -347,19 +347,20 @@ def solve_homotopy_core(op, n: int, Y: torch.Tensor, tolerance,
         return (s.it == 0) | (~s.broke & (s.it < max_iterations)
                               & (s.c_inf > tol))
 
-    def any_live(live):
-        flag = live.any()
-        with profiling.span("solvers.sync", what="live"):
-            return bool(flag)
+    def trip(carry):
+        # a trip is the body and the test that decides the next one; the
+        # test's lanes select the next trip's body
+        s, live = carry
+        s = _select(live, body(s), s)
+        return s, cond(s)
 
-    # a trip is the body and the test that decides the next one
-    live = cond(state)
-    go = any_live(live)
-    while go:
-        with profiling.span("solvers.iter"):
-            state = _select(live, body(state), state)
-            live = cond(state)
-            go = any_live(live)
+    from .homotopy_batch import graph_route, graphed_while, synced_while
+    carry = (state, cond(state))
+    if graph_route(carry, sharded=not isinstance(op, DenseOperator)):
+        carry = graphed_while(trip, lambda c: c[1], carry)
+    else:
+        carry = synced_while(trip, lambda c: c[1], carry)
+    state = carry[0]
 
     report = HomotopyReportArrays(iter=state.it, solution_error=state.c_inf)
     if record_path:

@@ -17,7 +17,10 @@ and vᵀv from the exact f32 column norms.
 PyTorch idiom against the JAX form:
   * the loop is a Python ``while`` on the host that reads ``any(live)``
     once per iteration (one device sync); frozen lanes pass through an
-    iteration unchanged, exactly as under ``lax.while_loop``;
+    iteration unchanged, exactly as under ``lax.while_loop``. On a card
+    and unsharded, every trip after the first replays one CUDA graph of
+    the trip (``graphed_while``), so the host issues one launch a trip
+    in place of each of the trip's kernels;
   * the transition updates the state's inv, gk, x_act, d_act, c_act and
     indices in place, as the Pallas call aliases them, and the mask is
     updated in place too — a ``body(s)`` call consumes ``s``;
@@ -49,6 +52,7 @@ import torch.nn.functional as F
 
 from ..linalg import active_set
 from ..ops import blas, collectives
+from ..ops import dispatch as _dispatch
 from ..ops.cuda import kernels as _kern
 from ..ops.cuda import scan as _scan
 from ..ops.cuda import transition as _trans
@@ -296,6 +300,134 @@ def _any_live(live_fn, state, sync_axes) -> bool:
         return bool(live)
 
 
+def _leaves(tree) -> list:
+    """The tensors of a (nested) tuple state, depth first."""
+    if isinstance(tree, tuple):
+        return [t for sub in tree for t in _leaves(sub)]
+    return [tree]
+
+
+def graph_route(state, sharded: bool = False,
+                host_reads: bool = False) -> bool:
+    """Whether a driver loop runs through ``graphed_while``: every tensor
+    of its state is on a CUDA card, no collective runs in it (``sharded``:
+    a row group, a group that syncs the trips, or a row-sharded operator)
+    and its body reads nothing on the host (``host_reads``: the batch
+    driver's breakpoint history). Every other loop runs ``synced_while``."""
+    return (not sharded and not host_reads
+            and all(t.is_cuda for t in _leaves(state)))
+
+
+# per card: the memory pool every trip graph is captured into, the side
+# stream captures run on, and the newest graph, which holds the pool open
+# between driver calls
+_pools: dict = {}
+_streams: dict = {}
+_newest: dict = {}
+
+
+def _capture(fn, device: torch.device):
+    """Capture ``fn()`` into a new CUDA graph on ``device``'s side stream,
+    its memory drawn from the process's one pool for trip graphs. Returns
+    (the graph, what ``fn`` returned: tensors the graph writes). Nothing
+    runs until the graph is replayed."""
+    key = device.index
+    if key not in _pools:
+        _pools[key] = torch.cuda.graph_pool_handle()
+        _streams[key] = torch.cuda.Stream(device)
+    stream = _streams[key]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(device):
+        stream.wait_stream(torch.cuda.current_stream(device))
+        # cuBLAS keeps a workspace for each stream it ran on; cleared
+        # before and after, the capture's own lands in the pool and no
+        # stream holds a second one beside the caller's
+        torch._C._cuda_clearCublasWorkspaces()
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=_pools[key])
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.current_stream(device).wait_stream(stream)
+    _newest[key] = graph
+    return graph, out
+
+
+class _TripGraph:
+    """One loop trip captured as a CUDA graph over the state's tensors:
+    the body, a copy of every field the body replaced back into the
+    state's own tensor, and the liveness ``any()`` into ``flag``.
+    ``launches`` holds the hand kernels' launches of one trip, which
+    ``ops/dispatch.launches`` counted only once, at the capture."""
+
+    def __init__(self, body, live_fn, state):
+        before = dict(_dispatch.launches)
+        with profiling.span("solvers.capture"):
+            self.graph, self.flag = _capture(
+                lambda: _captured_trip(body, live_fn, state),
+                _leaves(state)[0].device)
+        self.launches = {k: n - before[k]
+                         for k, n in _dispatch.launches.items()
+                         if n != before[k]}
+        _dispatch.launches.update(before)
+
+    def replay(self) -> bool:
+        """Run the trip once more; whether any lane is still live."""
+        self.graph.replay()
+        for name, n in self.launches.items():
+            _dispatch.launches[name] += n
+        profiling.count("solvers.graph_replays")
+        with profiling.span("solvers.sync", what="live"):
+            return bool(self.flag)
+
+
+def _captured_trip(body, live_fn, state) -> torch.Tensor:
+    """Issue one trip on ``state``'s tensors, write the body's results
+    back into them, and return the liveness flag (under a capture, every
+    tensor read or written is the graph's)."""
+    dst = _leaves(state)
+    src = _leaves(body(state))
+    held = [d.untyped_storage().data_ptr() for d in dst]
+    if len(set(held)) != len(held) or len(src) != len(dst) or any(
+            s.shape != d.shape or s.dtype != d.dtype or (
+                s is not d and s.untyped_storage().data_ptr() in held)
+            for s, d in zip(src, dst)):
+        raise ValueError(
+            "a graphed trip writes each result back whole: every state "
+            "field needs a tensor of its own, and the body's results "
+            "their fields' shapes and dtypes")
+    for s, d in zip(src, dst):
+        if s is not d:
+            d.copy_(s)
+    return live_fn(state).any()
+
+
+def graphed_while(body, live_fn, state):
+    """``synced_while`` (unsharded) with each trip after the first
+    replayed as one CUDA graph (``graph_route`` says where). The first
+    trip runs eagerly, which also warms every lazy set-up its kernels
+    have; its state becomes the graph's buffers. A trip is captured (a
+    ``solvers.capture`` span) while the card still runs the first one,
+    before its liveness read, and replayed while any lane lives, each
+    replay counted in ``solvers.graph_replays``. Spans, syncs, values and
+    the hand kernels' launch counts are the eager loop's. The graph lives
+    for this loop only."""
+    if not _any_live(live_fn, state, None):
+        return state
+    with profiling.span("solvers.iter"):
+        state = body(state)
+        live = live_fn(state).any()
+        trip = _TripGraph(body, live_fn, state)
+        with profiling.span("solvers.sync", what="live"):
+            go = bool(live)
+    while go:
+        with profiling.span("solvers.iter"):
+            go = trip.replay()
+    return state
+
+
 def _embed(s: _BState, K2: int, n: int) -> _BState:
     """Zero-pad a capacity-K1 state into capacity K2 (> K1). Exact: the
     kernels derive slot liveness from kk/indices."""
@@ -383,7 +515,11 @@ def solve_homotopy_batch(A: torch.Tensor, G: torch.Tensor | None,
                     for h, v in zip(hist, (s.x_act, s.indices, s.c_inf)):
                         h[lanes, rows] = v[lanes]
                     return s
-            state = synced_while(body, lane_live, state, sync_axes)
+            if graph_route(state, sharded=axis is not None
+                           or sync_axes is not None, host_reads=record_path):
+                state = graphed_while(body, lane_live, state)
+            else:
+                state = synced_while(body, lane_live, state, sync_axes)
     if dense:
         out = active_set.scatter(state.x_act, state.indices, n)
     else:

@@ -36,7 +36,10 @@ pin ``engine="jax"``, as a CPU façade's "auto" would send them to the
 host engine. The span store under the CUDA-only profiler: a span holds the
 device interval of the K1 launch it waited for to within 50 us, and every
 sync that ``torch.cuda.set_sync_debug_mode`` reports in a certified
-``solve_batch`` and ``solve`` is a ``solvers.sync`` span.
+``solve_batch`` and ``solve`` is a ``solvers.sync`` span. The Homotopy
+loops' CUDA graphs against the same loops stepped eagerly: X, iterations
+and errors bit-equal, launch counts equal, and K1 to K3 seen from inside
+the graphs by the profiler.
 """
 
 import numpy as np
@@ -684,6 +687,187 @@ def test_every_sync_of_a_solve_is_a_sync_span(dev, gram, resolve,
     spans = [s for c in calls for s in c.spans if s.name == "solvers.sync"]
     assert len(syncs) == len(spans), sorted(
         (w.filename.split("/")[-1], w.lineno) for w in syncs)
+
+
+def _lane_mix(m, n, ks, seed):
+    """Unit-column gaussian A (m, n) and one signal a lane with the
+    lane's own sparsity ``ks[i]``: lanes finish on different trips."""
+    rng = np.random.RandomState(seed)
+    A = rng.randn(m, n)
+    A /= np.linalg.norm(A, axis=0)
+    X = np.zeros((len(ks), n))
+    for i, k in enumerate(ks):
+        X[i, rng.choice(n, k, replace=False)] = rng.uniform(0.5, 1.0, k)
+    return A.astype(np.float32), (X @ A.T).astype(np.float32), X
+
+
+def _driver_case(dev, case):
+    """``run()`` → the batch driver's (X, report) on the card, and a
+    check of the reports."""
+    from sparse_solvers_tpu_torch.ops import blas
+    from sparse_solvers_tpu_torch.solvers import homotopy_batch as hb
+    if case == "ragged":
+        A, Y, X = _lane_mix(256, 512, [4, 12, 20, 28, 36, 44, 52, 60], 6)
+    else:
+        A, Y, X = compressive_problem(256, 512 if case != "gram_free"
+                                      else 1024, 60 if case == "tiers"
+                                      else 20, 16, seed=4)
+    A, Y = torch.as_tensor(A, device=dev), torch.as_tensor(Y, device=dev)
+    k_max, max_it = (96, 128) if case in ("tiers", "ragged") else (41, 40)
+    with blas.precision_scope("default"):
+        G = None if case == "gram_free" else A.T @ A
+        AT = hb.transposed_copy(A) if G is None else None
+    if case == "degenerate":
+        # column j of lane 0's support reads a zero Gram row: its insert's
+        # Schur complement is 0 and K3 breaks the lane
+        idx0 = (Y @ A).abs().argmax(dim=1).tolist()
+        j = [s for s in np.flatnonzero(X[0]) if s not in idx0][0]
+        G[j, :] = 0
+        G[:, j] = 0
+
+    def run():
+        with blas.precision_scope("default"):
+            return hb.solve_homotopy_batch(A, G, Y, 0.01, max_it, k_max,
+                                           AT=AT)
+
+    def check(rep):
+        it, err = rep.iter.cpu(), rep.solution_error.cpu()
+        if case == "tiers":
+            assert int(it.max()) > 48          # the third tier ran
+        if case == "ragged":
+            assert len(set(it.tolist())) > 3
+        if case == "degenerate":
+            assert float(err[0]) > 0.01 and int(it[0]) < max_it
+            assert int(it.max()) > int(it[0])
+    return run, check
+
+
+def _facade_case(dev, case, monkeypatch):
+    from sparse_solvers_tpu_torch import Homotopy
+    from sparse_solvers_tpu_torch import api as papi
+    A, Y, _ = compressive_problem(256, 512, 20, 16, seed=3)
+    solver = Homotopy(A, k_max=48, device=dev)
+    Yd = torch.as_tensor(Y, device=dev)
+    if case == "resolve":
+        real = papi._certified_error
+
+        def miss_lane_0(A, x, y):
+            err = real(A, x, y)
+            lane = torch.arange(err.shape[0], device=err.device)
+            return torch.where(lane == 0, 1.0, err)
+        monkeypatch.setattr(papi, "_certified_error", miss_lane_0)
+        return lambda: solver.solve_batch(Yd, 0.01, 64), None
+    return lambda: solver.solve(Yd[0], 0.01, 64), None
+
+
+def _core_case(dev, case):
+    from sparse_solvers_tpu_torch.ops.operators import DenseOperator
+    from sparse_solvers_tpu_torch.solvers import homotopy as core
+    A, Y, _ = compressive_problem(128, 512, 10, 4, seed=8)
+    dtype = torch.float64 if case == "core_f64" else torch.float32
+    A = torch.as_tensor(A, device=dev, dtype=dtype)
+    Y = torch.as_tensor(Y, device=dev, dtype=dtype)
+    mode = "exact" if case == "core_exact_path" else "fast"
+    return (lambda: core.solve_homotopy_core(
+        DenseOperator(A, A.T @ A), 512, Y, 0.01, 40, 41, mode=mode,
+        use_gk=mode == "fast", sparse_matvec=case == "core_f64",
+        record_path=case == "core_exact_path")), None
+
+
+def _flat_cpu(out):
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat_cpu(o)]
+    if isinstance(out, torch.Tensor):
+        return [out.cpu()]
+    # a single solve's report
+    return [torch.tensor(out.iter), torch.tensor(out.solution_error)]
+
+
+GRAPH_CASES = ("tiers", "gram_free", "ragged", "degenerate", "resolve",
+               "single", "core_f64", "core_exact_path")
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_graph_route_bit_equal_to_eager(dev, case, monkeypatch):
+    """Each Homotopy loop on the card through its CUDA graphs against the
+    same loop stepped eagerly (``synced_while``, the rule patched to say
+    eager): X, iterations, errors and every history bit-equal, the hand
+    kernels' launch counts equal, and trips replayed. The batch driver
+    over three tiers (k = 60, tiers 24, 48, 96), gram-free, lanes that
+    finish on different trips, a lane that breaks on a degenerate insert;
+    the certified facade's "high" re-solve (lane 0's certificate forced to
+    miss) and a single ``solve``; the per-lane core in float64 with the
+    sparse q and in exact mode with its path recorded."""
+    from sparse_solvers_tpu_torch.ops import dispatch
+    from sparse_solvers_tpu_torch.solvers import homotopy_batch as hb
+    if case in ("resolve", "single"):
+        run, check = _facade_case(dev, case, monkeypatch)
+    elif case.startswith("core"):
+        run, check = _core_case(dev, case)
+    else:
+        run, check = _driver_case(dev, case)
+    run()                                  # built and warm
+    torch.cuda.synchronize()
+    replays = []
+    real = hb._TripGraph.replay
+
+    def counted(self):
+        replays.append(1)
+        return real(self)
+    got = {}
+    for route in ("graph", "eager"):
+        with monkeypatch.context() as mp:
+            mp.setattr(hb._TripGraph, "replay", counted)
+            if route == "eager":
+                mp.setattr(hb, "graph_route", lambda *a, **k: False)
+            replays.clear()
+            dispatch.reset_launches()
+            out = run()
+            torch.cuda.synchronize()
+            got[route] = (_flat_cpu(out), dict(dispatch.launches),
+                          len(replays))
+    (g, gl, gr), (e, el, er) = got["graph"], got["eager"]
+    assert gr > 0 and er == 0
+    assert gl == el
+    assert len(g) == len(e)
+    for a, b in zip(g, e):
+        assert torch.equal(a, b)
+    if check is not None:
+        check(out[1])
+
+
+def test_traced_call_sees_the_graphs_kernels(dev):
+    """Under the CUDA-only profiler the benchmark traces with, a
+    ``solve_batch`` at "default" (K1's precision, no certificate to
+    re-solve) captured and replayed inside the trace shows K1, K2 and K3
+    once a trip: one K2 and one K3 a ``solvers.iter`` span, three K1
+    kernels (two ring GEMMs and the rounding) a trip, and a replay
+    counted for each trip after each tier's first."""
+    from sparse_solvers_tpu_torch import Homotopy
+    from sparse_solvers_tpu_torch.utils import profiling
+    A, Y, _ = compressive_problem(256, 512, 40, 16, seed=3)
+    solver = Homotopy(A, k_max=96, precision="default", device=dev)
+    Yd = torch.as_tensor(Y, device=dev)
+    solver.solve_batch(Yd, 0.01, 128)
+    torch.cuda.synchronize()
+    profiling.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, rep = solver.solve_batch(Yd, 0.01, 128)
+        torch.cuda.synchronize()
+    [call] = profiling.calls()
+    trips = [s for s in call.spans if s.name == "solvers.iter"]
+    tiers = [s for s in call.spans if s.name == "solvers.tier"]
+    assert len(trips) == int(rep.iter.max())
+    names = [e[0] for e in _device_events(prof)]
+    k2 = sum("gamma_scan" in n for n in names)
+    k3 = sum("transition_regs_kernel" in n for n in names)
+    k1 = sum("gemm_bf16_async_kernel" in n or "round_to_bf16_kernel" in n
+             for n in names)
+    assert k2 == k3 == len(trips)
+    assert k1 == 3 * len(trips)
+    assert call.counters["solvers.graph_replays"] == len(trips) - len(tiers)
+    assert [s for s in call.spans if s.name == "solvers.capture"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
