@@ -1093,9 +1093,11 @@ class Omp(_GramSolver):
 
         def run(A, G, y, tol):
             Y = y if batch is not None else y[None]
-            with _blas.precision_scope(path_precision):
+            with _profiling.span("api.path"), _blas.precision_scope(
+                    path_precision):
                 if driver:
-                    # without a Gram the driver runs gram-free
+                    # without a Gram the driver runs gram-free; its
+                    # post-loop certificate is its own api.certify span
                     return _omp_batch.solve_omp_batch(
                         A, G, Y, tol, max_iterations, k_max, dense=dense,
                         picks=self._picks,
@@ -1106,8 +1108,9 @@ class Omp(_GramSolver):
                     DenseOperator(A, G), self._n, Y, tol, max_iterations,
                     k_max, mode=self._mode, corr=corr, picks=self._picks)
             if certified:
-                rep = rep._replace(solution_error=_certified_l2_error(
-                    A, X, Y).to(rep.solution_error.dtype))
+                with _profiling.span("api.certify"):
+                    rep = rep._replace(solution_error=_certified_l2_error(
+                        A, X, Y).to(rep.solution_error.dtype))
             if batch is None:
                 return _first_lane((X, rep))
             if not dense:
@@ -1122,6 +1125,11 @@ class Omp(_GramSolver):
         returns (x, OmpReport) with x an (n,) tensor on the solver's
         device. Under "certified", a solution whose certificate misses the
         tolerance is re-solved at "high" (api.py:1771-1803)."""
+        with _profiling.span("api.solve", precision=self._precision):
+            _profiling.count("api.lanes")
+            return self._solve(b, tolerance, max_iterations)
+
+    def _solve(self, b, tolerance, max_iterations: int):
         y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
                              device=self._device)
         tol = self._tol(tolerance)
@@ -1129,8 +1137,9 @@ class Omp(_GramSolver):
         if self._mesh is not None:
             x, rep = self._mesh_single(y, lambda Y: self._solve_batch_mesh(
                 Y, tol, max_iterations))
-            return x, OmpReport(iter=int(rep.iter),
-                                solution_error=float(rep.solution_error))
+            return x, OmpReport(
+                iter=_read(rep.iter, int),
+                solution_error=_read(rep.solution_error, float))
         if self._use_native():
             xn, it, err = _native.omp_solve(
                 self._host_A(), _numpy(y), tol, max_iterations,
@@ -1139,14 +1148,17 @@ class Omp(_GramSolver):
                                                      solution_error=err)
         x, rep = self._fn(max_iterations, batch=None)(self._A, self._G, y,
                                                       tol)
-        it, err = int(rep.iter), float(rep.solution_error)
+        it, err = _read(rep.iter, int), _read(rep.solution_error, float)
         # NaN-safe predicate; a lane that exhausted max_iterations is
         # reported as-is
         if (self._precision == "certified" and not (err <= tol)
                 and it < max_iterations):
-            x, rep = self._fn(max_iterations, batch=None,
-                              precision="high")(self._A, self._G, y, tol)
-            it, err = int(rep.iter), float(rep.solution_error)
+            with _profiling.span("api.resolve"):
+                _profiling.count("api.resolved_lanes")
+                x, rep = self._fn(max_iterations, batch=None,
+                                  precision="high")(self._A, self._G, y, tol)
+                it = _read(rep.iter, int)
+                err = _read(rep.solution_error, float)
         return x, OmpReport(iter=it, solution_error=err)
 
     def solve_on_device(self, y: torch.Tensor, tolerance,
@@ -1173,8 +1185,13 @@ class Omp(_GramSolver):
         rebuilds X exactly. Under "certified", lanes whose certificate
         misses the tolerance are re-solved at "high" and merged
         (api.py:1838-1861)."""
+        with _profiling.span("api.solve_batch", precision=self._precision):
+            return self._solve_batch(B, tolerance, max_iterations, dense)
+
+    def _solve_batch(self, B, tolerance, max_iterations: int, dense: bool):
         Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
                                    device=self._device)
+        _profiling.count("api.lanes", Y.shape[0])
         tol = self._tol(tolerance)
         _check_max_iterations(max_iterations)
         if self._mesh is not None:
@@ -1195,19 +1212,24 @@ class Omp(_GramSolver):
             # failing; lanes that exhausted max_iterations are reported
             # as-is. The re-solve covers the full batch and the merge
             # keeps the fast result wherever the certificate held.
-            errs = rep.solution_error.cpu().numpy()
-            bad = (~(errs <= tol)) & (rep.iter.cpu().numpy()
+            errs = _read(rep.solution_error, _host_array)
+            bad = (~(errs <= tol)) & (_read(rep.iter, _host_array)
                                       < max_iterations)
             if bad.any():
-                outh, reph = self._fn(max_iterations, batch=Y.shape[0],
-                                      precision="high", dense=dense)(
-                    self._A, self._G, Y, tol)
-                sel = torch.as_tensor(bad, device=self._device)
-                out = _merge_lanes(sel, outh, out, dense)
-                rep = type(rep)(
-                    iter=torch.where(sel, reph.iter, rep.iter),
-                    solution_error=torch.where(sel, reph.solution_error,
-                                               rep.solution_error))
+                with _profiling.span("api.resolve"):
+                    _profiling.count("api.resolved_lanes", Y.shape[0])
+                    outh, reph = self._fn(max_iterations, batch=Y.shape[0],
+                                          precision="high", dense=dense)(
+                        self._A, self._G, Y, tol)
+                    # the mask's upload from pageable memory waits for the
+                    # device
+                    with _profiling.span("solvers.sync", what="copy"):
+                        sel = torch.as_tensor(bad, device=self._device)
+                    out = _merge_lanes(sel, outh, out, dense)
+                    rep = type(rep)(
+                        iter=torch.where(sel, reph.iter, rep.iter),
+                        solution_error=torch.where(
+                            sel, reph.solution_error, rep.solution_error))
         if not dense:
             return out[0], out[1], rep
         return out, rep

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from ..linalg import active_set
 from ..ops import blas, collectives
 from ..ops.cuda import omp_insert as _oins
+from ..utils import profiling
 from .homotopy_batch import (_identity, _plan_tiers, _take1,
                              make_insert_column, make_qprod, synced_while)
 from .omp import OmpReportArrays
@@ -263,27 +264,32 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
     for t, Kt in enumerate(tiers):
         # non-final tiers stop before any lane could need slot Kt
         cap = None if t == len(tiers) - 1 else Kt - 1
-        if state is None:
-            zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
-            state = _OBState(
-                it=torch.zeros(b, dtype=torch.int32, device=dev), c=C0,
-                mask=torch.zeros((b, n), dtype=torch.int8, device=dev),
-                inv=zeros(b, Kt, Kt), b_act=zeros(b, Kt), coef=zeros(b, Kt),
-                indices=torch.full((b, Kt), n, dtype=torch.int32,
-                                   device=dev),
-                kk=torch.zeros(b, dtype=torch.int32, device=dev), rss=yty,
-                broke=torch.zeros(b, dtype=torch.bool, device=dev),
-                done=torch.zeros(b, dtype=torch.bool, device=dev))
-        else:
-            state = _embed_omp(state, Kt, n)
-        state = synced_while(lambda s, c=cap: body(s, c),
-                             lambda s, c=cap: lane_live(s, c), state,
-                             sync_axes)
+        with profiling.span("solvers.tier", K=Kt):
+            if state is None:
+                zeros = lambda *shape: torch.zeros(shape, dtype=dtype,
+                                                   device=dev)
+                state = _OBState(
+                    it=torch.zeros(b, dtype=torch.int32, device=dev), c=C0,
+                    mask=torch.zeros((b, n), dtype=torch.int8, device=dev),
+                    inv=zeros(b, Kt, Kt), b_act=zeros(b, Kt),
+                    coef=zeros(b, Kt),
+                    indices=torch.full((b, Kt), n, dtype=torch.int32,
+                                       device=dev),
+                    kk=torch.zeros(b, dtype=torch.int32, device=dev),
+                    rss=yty,
+                    broke=torch.zeros(b, dtype=torch.bool, device=dev),
+                    done=torch.zeros(b, dtype=torch.bool, device=dev))
+            else:
+                state = _embed_omp(state, Kt, n)
+            state = synced_while(lambda s, c=cap: body(s, c),
+                                 lambda s, c=cap: lane_live(s, c), state,
+                                 sync_axes)
 
     X = active_set.scatter(state.coef, state.indices, n)
     # the certificate: ‖y − Ax‖₂ per lane from the returned solution (a
-    # replaced seam takes the unsharded arguments)
-    with blas.precision_scope(cert_prec):
+    # replaced seam takes the unsharded arguments); the facade's
+    # certificate, so an api.certify span
+    with profiling.span("api.certify"), blas.precision_scope(cert_prec):
         err = (l2_certificate(A, X, Y) if axis is None
                else l2_certificate(A, X, Y, psum))
     report = OmpReportArrays(iter=state.it, solution_error=err)
