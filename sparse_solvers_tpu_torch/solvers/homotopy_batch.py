@@ -313,7 +313,9 @@ def graph_route(state, sharded: bool = False,
     of its state is on a CUDA card, no collective runs in it (``sharded``:
     a row group, a group that syncs the trips, or a row-sharded operator)
     and its body reads nothing on the host (``host_reads``: the batch
-    driver's breakpoint history). Every other loop runs ``synced_while``."""
+    driver's breakpoint history). Both batch drivers' tier loops (Homotopy
+    and OMP) and the per-lane Homotopy core ask it. Every other loop runs
+    ``synced_while``."""
     return (not sharded and not host_reads
             and all(t.is_cuda for t in _leaves(state)))
 

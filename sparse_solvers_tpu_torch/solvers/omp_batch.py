@@ -20,7 +20,11 @@ smaller slot buffers and zero-pads the state upward (``_embed_omp``).
 PyTorch idiom against the JAX form:
   * the loop is a Python ``while`` on the host that reads ``any(live)``
     once per round (one device sync); frozen lanes pass through a round
-    unchanged, exactly as under ``lax.while_loop``;
+    unchanged, exactly as under ``lax.while_loop``. Where
+    ``homotopy_batch.graph_route`` allows (the state on a card, no row or
+    trip-sync group), each tier's rounds after its first replay as one
+    CUDA graph (``graphed_while``), the Homotopy driver's route; the
+    values, spans and syncs are the host loop's;
   * K4 updates the state's inverse in place, as the Pallas call aliases
     it, and commits it ungated as the JAX driver does (inert and
     degenerate lanes are not written by the kernel; a blown lane breaks
@@ -46,8 +50,9 @@ from ..linalg import active_set
 from ..ops import blas, collectives
 from ..ops.cuda import omp_insert as _oins
 from ..utils import profiling
-from .homotopy_batch import (_identity, _plan_tiers, _take1,
-                             make_insert_column, make_qprod, synced_while)
+from .homotopy_batch import (_identity, _plan_tiers, _take1, graph_route,
+                             graphed_while, make_insert_column, make_qprod,
+                             synced_while)
 from .omp import OmpReportArrays
 
 
@@ -146,6 +151,9 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
     tol2 = float(tol_t * tol_t)
     bidx = torch.arange(b, device=dev)
     one8 = torch.ones((), dtype=torch.int8, device=dev)
+    # gOMP's taken score, written from the device (a graphed round uploads
+    # nothing from the host)
+    neg1 = torch.full((), -1.0, dtype=dtype, device=dev)
 
     # c₀ at "highest": the rhs of every LS re-solve and the dominant noise
     # term of the rss identity (omp_batch.py:169-183); the certificate
@@ -202,7 +210,7 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
             for _ in range(picks):
                 idx = torch.argmax(scores, dim=1).to(torch.int32)
                 val = _take1(scores, idx)
-                scores[bidx, idx.long()] = -1.0
+                scores[bidx, idx.long()] = neg1
                 # strictly positive correlation (the oracle's
                 # degenerate-round semantics)
                 elig = (live & (val > 0) & (kk1 < K)
@@ -281,9 +289,13 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
                     done=torch.zeros(b, dtype=torch.bool, device=dev))
             else:
                 state = _embed_omp(state, Kt, n)
-            state = synced_while(lambda s, c=cap: body(s, c),
-                                 lambda s, c=cap: lane_live(s, c), state,
-                                 sync_axes)
+            step = lambda s, c=cap: body(s, c)
+            live_fn = lambda s, c=cap: lane_live(s, c)
+            if graph_route(state, sharded=axis is not None
+                           or sync_axes is not None):
+                state = graphed_while(step, live_fn, state)
+            else:
+                state = synced_while(step, live_fn, state, sync_axes)
 
     X = active_set.scatter(state.coef, state.indices, n)
     # the certificate: ‖y − Ax‖₂ per lane from the returned solution (a

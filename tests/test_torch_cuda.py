@@ -37,9 +37,10 @@ host engine. The span store under the CUDA-only profiler: a span holds the
 device interval of the K1 launch it waited for to within 50 us, and every
 sync that ``torch.cuda.set_sync_debug_mode`` reports in a certified
 ``solve_batch`` and ``solve`` is a ``solvers.sync`` span. The Homotopy
-loops' CUDA graphs against the same loops stepped eagerly: X, iterations
-and errors bit-equal, launch counts equal, and K1 to K3 seen from inside
-the graphs by the profiler.
+loops' and the OMP batch driver's CUDA graphs against the same loops
+stepped eagerly: X, iterations and errors bit-equal, launch counts equal,
+K1 to K4 seen from inside the graphs by the profiler, and OMP's captures
+within 1 MiB of the eager loop's peak memory.
 """
 
 import numpy as np
@@ -774,6 +775,31 @@ def _core_case(dev, case):
         record_path=case == "core_exact_path")), None
 
 
+def _omp_case(dev, case):
+    """``run()`` → the OMP batch driver's (X, report) at "default" on the
+    card over the capacity tiers 24, 40 and 72 (k = 60), and a check of
+    the reports: picks 1 with a Gram, gOMP (picks 4) and gram-free."""
+    from sparse_solvers_tpu_torch.ops import blas
+    from sparse_solvers_tpu_torch.solvers import homotopy_batch as hb
+    from sparse_solvers_tpu_torch.solvers import omp_batch
+    A, Y, _ = compressive_problem(
+        256, 1024 if case == "omp_gram_free" else 512, 60, 16, seed=4)
+    A, Y = torch.as_tensor(A, device=dev), torch.as_tensor(Y, device=dev)
+    with blas.precision_scope("default"):
+        G = None if case == "omp_gram_free" else A.T @ A
+        AT = hb.transposed_copy(A) if G is None else None
+
+    def run():
+        with blas.precision_scope("default"):
+            return omp_batch.solve_omp_batch(
+                A, G, Y, 0.01, 72, 72, AT=AT,
+                picks=4 if case == "gomp" else 1)
+
+    def check(rep):
+        assert int(rep.iter.max().cpu()) > 40      # the third tier ran
+    return run, check
+
+
 def _flat_cpu(out):
     if isinstance(out, (tuple, list)):
         return [t for o in out for t in _flat_cpu(o)]
@@ -784,12 +810,13 @@ def _flat_cpu(out):
 
 
 GRAPH_CASES = ("tiers", "gram_free", "ragged", "degenerate", "resolve",
-               "single", "core_f64", "core_exact_path")
+               "single", "core_f64", "core_exact_path", "omp", "gomp",
+               "omp_gram_free")
 
 
 @pytest.mark.parametrize("case", GRAPH_CASES)
 def test_graph_route_bit_equal_to_eager(dev, case, monkeypatch):
-    """Each Homotopy loop on the card through its CUDA graphs against the
+    """Each graphed loop on the card through its CUDA graphs against the
     same loop stepped eagerly (``synced_while``, the rule patched to say
     eager): X, iterations, errors and every history bit-equal, the hand
     kernels' launch counts equal, and trips replayed. The batch driver
@@ -797,13 +824,18 @@ def test_graph_route_bit_equal_to_eager(dev, case, monkeypatch):
     finish on different trips, a lane that breaks on a degenerate insert;
     the certified facade's "high" re-solve (lane 0's certificate forced to
     miss) and a single ``solve``; the per-lane core in float64 with the
-    sparse q and in exact mode with its path recorded."""
+    sparse q and in exact mode with its path recorded; the OMP batch
+    driver over three tiers with picks 1, with picks 4 (gOMP) and
+    gram-free."""
     from sparse_solvers_tpu_torch.ops import dispatch
     from sparse_solvers_tpu_torch.solvers import homotopy_batch as hb
+    from sparse_solvers_tpu_torch.solvers import omp_batch
     if case in ("resolve", "single"):
         run, check = _facade_case(dev, case, monkeypatch)
     elif case.startswith("core"):
         run, check = _core_case(dev, case)
+    elif case in ("omp", "gomp", "omp_gram_free"):
+        run, check = _omp_case(dev, case)
     else:
         run, check = _driver_case(dev, case)
     run()                                  # built and warm
@@ -820,6 +852,7 @@ def test_graph_route_bit_equal_to_eager(dev, case, monkeypatch):
             mp.setattr(hb._TripGraph, "replay", counted)
             if route == "eager":
                 mp.setattr(hb, "graph_route", lambda *a, **k: False)
+                mp.setattr(omp_batch, "graph_route", lambda *a, **k: False)
             replays.clear()
             dispatch.reset_launches()
             out = run()
@@ -868,6 +901,64 @@ def test_traced_call_sees_the_graphs_kernels(dev):
     assert k1 == 3 * len(trips)
     assert call.counters["solvers.graph_replays"] == len(trips) - len(tiers)
     assert [s for s in call.spans if s.name == "solvers.capture"]
+
+
+@pytest.mark.parametrize("picks", [1, 4])
+def test_traced_omp_call_sees_the_graphs_kernels(dev, picks):
+    """The same for ``Omp.solve_batch`` at "default" over the tiers 24,
+    40 and 72: one K4 a pick and K1's three kernels a ``solvers.iter``
+    span, each tier's rounds after its first replayed, one capture a
+    tier; with picks 1, a round a pick of the longest lane."""
+    from sparse_solvers_tpu_torch import Omp
+    from sparse_solvers_tpu_torch.utils import profiling
+    A, Y, _ = compressive_problem(256, 512, 60, 16, seed=3)
+    solver = Omp(A, precision="default", picks=picks, device=dev)
+    Yd = torch.as_tensor(Y, device=dev)
+    solver.solve_batch(Yd, 0.01, 72)
+    torch.cuda.synchronize()
+    profiling.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, rep = solver.solve_batch(Yd, 0.01, 72)
+        torch.cuda.synchronize()
+    [call] = profiling.calls()
+    trips = [s for s in call.spans if s.name == "solvers.iter"]
+    tiers = [s for s in call.spans if s.name == "solvers.tier"]
+    captures = [s for s in call.spans if s.name == "solvers.capture"]
+    assert len(tiers) == len(captures) == 3
+    if picks == 1:
+        assert len(trips) == int(rep.iter.max())
+    names = [e[0] for e in _device_events(prof)]
+    k4 = sum("omp_insert_rows_kernel" in n for n in names)
+    k1 = sum("gemm_bf16_async_kernel" in n or "round_to_bf16_kernel" in n
+             for n in names)
+    assert k4 == picks * len(trips)
+    assert k1 == 3 * len(trips)
+    assert call.counters["solvers.graph_replays"] == len(trips) - len(tiers)
+
+
+@pytest.mark.parametrize("case", ["omp", "gomp", "omp_gram_free"])
+def test_omp_capture_leaves_the_peak_memory_of_the_eager_loop(
+        dev, case, monkeypatch):
+    """The OMP driver's graph route (three captures, one a tier) raises
+    ``torch.cuda.max_memory_allocated()`` above the allocations it starts
+    from by what the eager loop does, within 1 MiB: a capture holds no
+    second cuBLAS workspace or other buffer beside the trip's own."""
+    from sparse_solvers_tpu_torch.solvers import omp_batch
+    run, _ = _omp_case(dev, case)
+    peaks = {}
+    for route in ("eager", "graph", "eager", "graph"):   # warm, then read
+        with monkeypatch.context() as mp:
+            if route == "eager":
+                mp.setattr(omp_batch, "graph_route", lambda *a, **k: False)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = run()
+            torch.cuda.synchronize()
+            peaks[route] = torch.cuda.max_memory_allocated(dev) - base
+            del out
+    assert abs(peaks["graph"] - peaks["eager"]) <= 2 ** 20, peaks
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -1,12 +1,14 @@
-"""The Homotopy loops' graph route (``homotopy_batch.graph_route`` and
+"""The drivers' graph route (``homotopy_batch.graph_route`` and
 ``graphed_while``) on the CPU: the rule that picks it, the loops that stay
 on ``synced_while`` (CPU tensors, a row group or a group that syncs the
-trips, a row-sharded operator, the batch driver's breakpoint history, the
-OMP driver), the trip's write-back into the state's tensors run through
-an eager stand-in for the CUDA graph (bit-equal to the eager loop, the
-same spans, one replay counted a trip after the first), and the γ scan's
-bound filled on the device bit for bit as the host upload gave it. The
-CUDA graph itself runs in ``tests/test_torch_cuda.py``.
+trips, a row-sharded operator, the batch driver's breakpoint history),
+the OMP batch driver asking the same rule, the trip's write-back into the
+state's tensors run through an eager stand-in for the CUDA graph
+(bit-equal to the eager loop for Homotopy's loops and for OMP, gOMP and
+gram-free OMP, the same spans, one replay counted a trip after the
+first), and the γ scan's bound filled on the device bit for bit as the
+host upload gave it. The CUDA graph itself runs in
+``tests/test_torch_cuda.py``.
 """
 
 import pytest
@@ -56,10 +58,17 @@ def _eager_capture(fn, device):
     return graph, graph.flag
 
 
+def _rule_says(mp, rule):
+    """Replace the rule where each driver looks it up: the OMP driver
+    holds its own name for it."""
+    mp.setattr(hb, "graph_route", rule)
+    mp.setattr(omp_batch, "graph_route", rule)
+
+
 @pytest.fixture
 def stand_in_graphs(monkeypatch):
     """The graph route taken on the CPU, with eager stand-in graphs."""
-    monkeypatch.setattr(hb, "graph_route", lambda *a, **k: True)
+    _rule_says(monkeypatch, lambda *a, **k: True)
     monkeypatch.setattr(hb, "_capture", _eager_capture)
 
 
@@ -126,20 +135,43 @@ def test_each_loop_asks_the_rule_with_what_it_observes(case, monkeypatch):
                           case == "record_path")]
 
 
-def test_the_omp_driver_stays_on_synced_while(monkeypatch):
-    """OMP's driver calls ``synced_while`` itself, whatever the rule
-    would say, and counts no replay."""
-    monkeypatch.setattr(hb, "graph_route", lambda *a, **k: True)
-    monkeypatch.setattr(hb, "_capture", lambda *a: (_ for _ in ()).throw(
-        AssertionError("a trip was captured")))
+@pytest.mark.parametrize("case", ["plain", "axis", "sync_axes"])
+def test_the_omp_driver_asks_the_rule_with_what_it_observes(case,
+                                                            monkeypatch):
+    """OMP's driver hands the rule its state and whether a row group or
+    a trip-sync group is in force. The rule, answering as it would on a
+    card, sends the unsharded loop through the (stand-in) graphs, one
+    replay a round after each tier's first, and the sharded ones through
+    ``synced_while``, which counts no replay."""
+    asked = []
+    real = hb.graph_route
+
+    def on_card(state, sharded=False, host_reads=False):
+        asked.append((sharded, host_reads))
+        return real(tuple(_OnCard() for _ in hb._leaves(state)), sharded,
+                    host_reads)
+    _rule_says(monkeypatch, on_card)
+    monkeypatch.setattr(hb, "_capture", _eager_capture)
+    # one process: the group's sum and max are the rank's own values
+    monkeypatch.setattr(collectives, "all_reduce",
+                        lambda t, group, op="sum": t)
     A, Y, _ = compressive_problem(128, 512, 6, 8, seed=2)
     A, Y = _t(A), _t(Y)
     with torch.profiler.profile(activities=CPU):
         with profiling.span("call"):
-            _, rep = omp_batch.solve_omp_batch(A, A.T @ A, Y, 1e-3, 12, 16)
+            _, rep = omp_batch.solve_omp_batch(
+                A, A.T @ A, Y, 1e-3, 12, 16, ladder=[4, 16],
+                axis=object() if case == "axis" else None,
+                sync_axes=object() if case == "sync_axes" else None)
     [call] = profiling.calls()
-    assert int(rep.iter.max()) > 1
-    assert "solvers.graph_replays" not in call.counters
+    sharded = case != "plain"
+    assert asked == [(sharded, False)] * 2
+    trips = [s for s in call.spans if s.name == "solvers.iter"]
+    assert int(rep.iter.max()) > 4
+    if sharded:
+        assert "solvers.graph_replays" not in call.counters
+    else:
+        assert call.counters["solvers.graph_replays"] == len(trips) - 2
 
 
 @pytest.mark.parametrize("entry", ["solve_batch", "solve"])
@@ -172,11 +204,23 @@ def _core(mode, record_path):
         use_gk=mode == "fast", record_path=record_path)
 
 
+def _omp(gram, ladder, picks):
+    A, Y, _ = compressive_problem(128, 512, 14, 6, seed=7)
+    A, Y = _t(A), _t(Y)
+    with blas.precision_scope("default"):
+        return omp_batch.solve_omp_batch(
+            A, A.T @ A if gram else None, Y, TOL, 24, 24, ladder=ladder,
+            picks=picks)
+
+
 CASES = {
     "batch_tiers": lambda: _batch(True, [16, 32, 48]),
     "batch_gram_free": lambda: _batch(False, False),
     "core_fast": lambda: _core("fast", False),
     "core_exact_path": lambda: _core("exact", True),
+    "omp_tiers": lambda: _omp(True, [4, 8, 24], 1),
+    "omp_gomp": lambda: _omp(True, [4, 12, 24], 4),
+    "omp_gram_free": lambda: _omp(False, False, 1),
 }
 
 
@@ -192,7 +236,7 @@ def test_stand_in_graphs_replay_the_eager_loop_bit_for_bit(
     for route in ("graph", "eager"):
         with monkeypatch.context() as mp:
             if route == "eager":
-                mp.setattr(hb, "graph_route", lambda *a, **k: False)
+                _rule_says(mp, lambda *a, **k: False)
             profiling.clear()
             with torch.profiler.profile(activities=CPU):
                 with profiling.span("call"):
