@@ -44,14 +44,17 @@ PyTorch semantics against the JAX façade:
 
 from __future__ import annotations
 
+import functools
 import os
 import warnings
 
 import numpy as np
 import torch
 
+from . import certify as _certify
 from . import convert as _convert
 from .backend import native as _native
+from .linalg import active_set as _active_set
 from .linalg import norms as _norms
 from .ops import blas as _blas
 from .ops import dispatch as _dispatch
@@ -159,15 +162,6 @@ def _trim_batch(out, rep, bpad: int, dense: bool):
     return out, type(rep)(*(cut(f) for f in rep))
 
 
-def _check_max_iterations(max_iterations: int) -> int:
-    """The reference's caller contract (homotopy-cpu.cpp:193:
-    ``assert(max_iter > 0)``) as an edge ValueError."""
-    if max_iterations < 1:
-        raise ValueError(
-            f"max_iterations must be >= 1, got {max_iterations}")
-    return max_iterations
-
-
 def _certified_error(A: torch.Tensor, x: torch.Tensor,
                      y: torch.Tensor) -> torch.Tensor:
     """Certificate: ‖Aᵀ(y − Ax)‖∞ at "high" precision (fp32, TF32 off) —
@@ -192,42 +186,6 @@ def _certified_l2_error(A: torch.Tensor, x: torch.Tensor,
     time, so tests can replace it to force certificate failures."""
     with _blas.precision_scope("high"):
         return _omp_batch.l2_certificate(A, x, y)
-
-
-def _merge_lanes(sel: torch.Tensor, new, old, dense: bool):
-    """Per-lane select of a re-solve's output (dense X, or the compact
-    (values, indices) pair) over the first solve's."""
-    if dense:
-        return torch.where(sel[:, None], new, old)
-    return (torch.where(sel[:, None], new[0], old[0]),
-            torch.where(sel[:, None], new[1], old[1]))
-
-
-def _compact_from_dense(X: torch.Tensor, k_max: int):
-    """The compact (values, indices) form of a dense batch solution, the
-    per-lane core's ``dense=False`` (api.py:2103-2115): per lane the ≤
-    k_max nonzero coordinates in ascending index order, sentinel n beyond
-    them. An exactly-zero active coordinate contributes nothing either
-    way."""
-    n = X.shape[1]
-    nz = X != 0
-    order = torch.sort((~nz).to(torch.int8), dim=1,
-                       stable=True).indices[:, :k_max]
-    keep = nz.gather(1, order)
-    vals = torch.where(keep, X.gather(1, order), torch.zeros_like(X[:, :1]))
-    idxs = torch.where(keep, order, torch.full_like(order, n))
-    return vals, idxs.to(torch.int32)
-
-
-def _read(t: torch.Tensor, to_host):
-    """``to_host(t)``, a read of a device value that waits for the device:
-    a ``solvers.sync`` span."""
-    with _profiling.span("solvers.sync", what="read"):
-        return to_host(t)
-
-
-def _host_array(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
 
 
 def _first_lane(out):
@@ -339,17 +297,17 @@ class _Solver:
                              dense)
         return (X, rep) if dense else (*X, rep)
 
-    def _mesh_single(self, y: torch.Tensor, solve_batch):
-        """A single solve through the mesh route: one lane of
-        ``solve_batch(Y)``, as (x, report of 0-d tensors)."""
-        X, rep = solve_batch(y[None])
-        return X[0], type(rep)(*(f[0] for f in rep))
-
 
 class _GramSolver(_Solver):
     """What the Homotopy and OMP façades share besides A: its lazy Gram
     (the JAX package's ``_lazy_gram``) and the gram-free drivers'
-    transposed copies."""
+    transposed copies, and the entry points ``solve``, ``solve_batch`` and
+    their ``_on_device`` forms with the certified re-solve
+    (``certify.py``)."""
+
+    # each façade's own: its report classes, and ``_resolved_k_max``,
+    # ``_native_fn``, ``_fn`` and ``_solve_batch_mesh``
+    _report = _report_arrays = None
 
     def _load(self, A, device, mesh=None) -> None:
         super()._load(A, device, mesh)
@@ -464,6 +422,123 @@ class _GramSolver(_Solver):
                 "batch_native": bn, "fused_q": fused_q,
                 "overlap_mode": "ppermute" if ring else "psum"}
 
+    def _mesh_single(self, y: torch.Tensor, tol, max_iterations: int):
+        """A single solve through the mesh route: one lane of the batch
+        route, as (x, report of 0-d tensors)."""
+        X, rep = self._solve_batch_mesh(y[None], tol, max_iterations)
+        return X[0], type(rep)(*(f[0] for f in rep))
+
+    def _use_native(self, probe: bool = False) -> bool:
+        """Whether ``solve``/``solve_batch`` run on the host engine; exact
+        mode and a mesh never do (api.py:597-603, :1565-1570)."""
+        if (self._engine == "jax" or self._mode == "exact"
+                or self._mesh is not None):
+            return False
+        return _route_native(self._engine, self._m, self._n, probe,
+                             self._device)
+
+    def solve(self, b, tolerance: float | None = None,
+              max_iterations: int = 100):
+        """Solve for one signal b (m,): Homotopy's min‖x‖₁ s.t. Ax = b, or
+        OMP's greedy y ≈ Ax in at most max_iterations support picks.
+        Returns (x, report) with x an (n,) tensor on the solver's device
+        and a ``HomotopyReport`` or an ``OmpReport``. Under "certified", a
+        solution whose certificate misses the tolerance (Homotopy's
+        ‖Aᵀ(y−Ax)‖∞, OMP's ‖y−Ax‖₂, each at "high") is re-solved at
+        "high" (api.py:605-641, :1771-1803)."""
+        with _profiling.span("api.solve", precision=self._precision):
+            _profiling.count("api.lanes")
+            return self._solve(b, tolerance, max_iterations)
+
+    def _solve(self, b, tolerance, max_iterations: int):
+        y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
+                             device=self._device)
+        tol = self._tol(tolerance)
+        _certify.check_max_iterations(max_iterations)
+        if self._mesh is not None:
+            x, rep = self._mesh_single(y, tol, max_iterations)
+            it = _certify.read(rep.iter, int)
+            err = _certify.read(rep.solution_error, float)
+        elif self._use_native():
+            xn, it, err = self._native_fn(batch=False)(
+                self._host_A(), _numpy(y), tol, max_iterations,
+                self._resolved_k_max(max_iterations))
+            x = self._from_host(xn)[0]
+        else:
+            x, it, err = _certify.certified_one(
+                lambda precision=None: self._fn(
+                    max_iterations, batch=None, precision=precision)(
+                        self._A, self._G, y, tol),
+                self._precision == "certified", tol, max_iterations)
+        return x, self._report(iter=it, solution_error=err)
+
+    def solve_on_device(self, y: torch.Tensor, tolerance,
+                        max_iterations: int = 100):
+        """Solve for an (m,) tensor already on the solver's device, without
+        the certified re-solve: under "certified" the report's
+        solution_error is the certificate, to be checked against the
+        tolerance downstream. Returns (x, report arrays of 0-d tensors:
+        ``HomotopyReportArrays`` or ``OmpReportArrays``). With a mesh the
+        solve takes the sharded route, whose certified re-solve runs
+        inside it (as in the JAX package)."""
+        if self._mesh is not None:
+            return self._mesh_single(y, tolerance, max_iterations)
+        return self._fn(max_iterations, batch=None)(self._A, self._G, y,
+                                                    tolerance)
+
+    def solve_batch(self, B, tolerance: float | None = None,
+                    max_iterations: int = 100, dense: bool = True):
+        """Batched solve over signals B of shape (batch, m).
+
+        Returns (X (batch, n), report arrays of per-lane tensors:
+        ``HomotopyReportArrays`` or ``OmpReportArrays``), on the solver's
+        device. ``dense=False`` returns ``(values, indices, report)``, the
+        compact slot-space solution (see
+        ``sparse_solvers_tpu.Homotopy.solve_batch``); ``densify_batch``
+        rebuilds X exactly. Under "certified", lanes whose certificate
+        misses the tolerance (as in ``solve``) are re-solved at "high" and
+        merged (api.py:754-784, :1838-1861)."""
+        with _profiling.span("api.solve_batch", precision=self._precision):
+            return self._solve_batch(B, tolerance, max_iterations, dense)
+
+    def _solve_batch(self, B, tolerance, max_iterations: int, dense: bool):
+        Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
+                                   device=self._device)
+        _profiling.count("api.lanes", Y.shape[0])
+        tol = self._tol(tolerance)
+        _certify.check_max_iterations(max_iterations)
+        if self._mesh is not None:
+            return self._solve_batch_mesh(Y, tol, max_iterations, dense)
+        if self._use_native():
+            k_max = self._resolved_k_max(max_iterations)
+            X, iters, errs = self._from_host(*self._native_fn(batch=True)(
+                self._host_A(), _numpy(Y), tol, max_iterations, k_max))
+            rep = self._report_arrays(iter=iters, solution_error=errs)
+            if not dense:
+                return (*_active_set.compact_from_dense(X, k_max), rep)
+            return X, rep
+        return _certify.certified_batch(
+            lambda precision=None: self._fn(
+                max_iterations, batch=Y.shape[0], precision=precision,
+                dense=dense)(self._A, self._G, Y, tol),
+            self._precision == "certified", tol, max_iterations, dense)
+
+    def solve_batch_on_device(self, Y: torch.Tensor, tolerance,
+                              max_iterations: int = 100,
+                              dense: bool = True):
+        """Batched solve over a (batch, m) tensor already on the solver's
+        device, without host-side conversion or the certified re-solve:
+        under "certified" each lane's solution_error is the certificate,
+        to be checked against the tolerance downstream. Returns (X,
+        report), or ((values, indices), report) when ``dense=False``. With
+        a mesh the solve takes the sharded route, whose certified re-solve
+        runs inside it (as in the JAX package)."""
+        if self._mesh is not None:
+            out = self._solve_batch_mesh(Y, tolerance, max_iterations, dense)
+            return out if dense else (out[:2], out[2])
+        return self._fn(max_iterations, batch=Y.shape[0], dense=dense)(
+            self._A, self._G, Y, tolerance)
+
 
 class Homotopy(_GramSolver):
     """Homotopy path-following solver over a fixed sensing matrix A (m×n).
@@ -482,6 +557,9 @@ class Homotopy(_GramSolver):
     data axis and trimmed; fast mode only, and ``solve_path*`` stay
     single-device.
     """
+
+    _report = HomotopyReport
+    _report_arrays = _homotopy.HomotopyReportArrays
 
     def __init__(self, A, k_max: int | None = None, mode: str = "fast",
                  gram: bool | None = None, precision: str | None = None,
@@ -524,7 +602,7 @@ class Homotopy(_GramSolver):
     def _plan(self, max_iterations: int, batch: int | None):
         """(k_max, sparse_matvec, batch_native) for a solve of this shape,
         shared by ``_fn`` and ``explain`` (api.py:420-449)."""
-        k_max = self._k_max or min(self._n, max_iterations + 1)
+        k_max = self._resolved_k_max(max_iterations)
         sparse = (self._mode == "fast"
                   and (batch or 1) * k_max < 2 * self._m
                   and k_max < self._n)
@@ -533,14 +611,15 @@ class Homotopy(_GramSolver):
                             batch, self._n, self._A.dtype, sparse))
         return k_max, sparse, batch_native
 
-    def _use_native(self, probe: bool = False) -> bool:
-        """Whether ``solve``/``solve_batch`` run on the host engine; exact
-        mode and a mesh never do (api.py:597-603)."""
-        if (self._engine == "jax" or self._mode == "exact"
-                or self._mesh is not None):
-            return False
-        return _route_native(self._engine, self._m, self._n, probe,
-                             self._device)
+    def _resolved_k_max(self, max_iterations: int) -> int:
+        """The slot capacity of a solve: ``k_max``, else one past the
+        iteration budget, at most n."""
+        return self._k_max or min(self._n, max_iterations + 1)
+
+    def _native_fn(self, batch: bool):
+        """The host engine's solve, of a batch or of one signal."""
+        return (_native.homotopy_solve_batch if batch
+                else _native.homotopy_solve)
 
     def explain(self, batch: int | None = None,
                 max_iterations: int = 100) -> dict:
@@ -592,7 +671,7 @@ class Homotopy(_GramSolver):
 
     def _explain_mesh(self, batch: int | None, max_iterations: int) -> dict:
         """The mesh route's plan (api.py:465-493)."""
-        k_max = self._k_max or min(self._n, max_iterations + 1)
+        k_max = self._resolved_k_max(max_iterations)
         plan = self._mesh_plan(batch, k_max, lambda b, m: (
             self._gram_enabled and b * k_max < 2 * m and k_max < self._n))
         bn = plan["batch_native"]
@@ -615,10 +694,10 @@ class Homotopy(_GramSolver):
         the certified re-solve included."""
         from .parallel import sharding as _sh
         A, G = self._mesh_arrays()
-        k_max = self._k_max or min(self._n, max_iterations + 1)
         return self._mesh_batch(Y, lambda Yl: _sh._homotopy_placed(
             self._mesh, A, Yl, tol, max_iterations, m=self._m_padded(),
-            k_max=k_max, gram=self._gram_enabled if G is None else None,
+            k_max=self._resolved_k_max(max_iterations),
+            gram=self._gram_enabled if G is None else None,
             G=G, precision=self._precision, dense=dense,
             at_cache=self._AT_mesh), dense)
 
@@ -630,7 +709,7 @@ class Homotopy(_GramSolver):
         or (x, report, histories) with ``record_path``. ``y`` is (m,) for
         ``batch=None`` and (batch, m) otherwise. ``precision`` overrides
         the instance setting (the certified re-solve uses it)."""
-        _check_max_iterations(max_iterations)
+        _certify.check_max_iterations(max_iterations)
         precision = precision or self._precision
         certified = precision == "certified"
         if record_path and certified:
@@ -673,62 +752,6 @@ class Homotopy(_GramSolver):
 
         return run
 
-    def solve(self, b, tolerance: float | None = None,
-              max_iterations: int = 100):
-        """Solve min‖x‖₁ s.t. Ax = b; returns (x, HomotopyReport) with x
-        an (n,) tensor on the solver's device. Under "certified", a
-        solution whose certificate misses the tolerance is re-solved at
-        "high" (api.py:605-641)."""
-        with _profiling.span("api.solve", precision=self._precision):
-            _profiling.count("api.lanes")
-            return self._solve(b, tolerance, max_iterations)
-
-    def _solve(self, b, tolerance, max_iterations: int):
-        y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
-                             device=self._device)
-        tol = self._tol(tolerance)
-        _check_max_iterations(max_iterations)
-        if self._mesh is not None:
-            x, rep = self._mesh_single(y, lambda Y: self._solve_batch_mesh(
-                Y, tol, max_iterations))
-            return x, HomotopyReport(
-                iter=_read(rep.iter, int),
-                solution_error=_read(rep.solution_error, float))
-        if self._use_native():
-            k_max = self._k_max or min(self._n, max_iterations + 1)
-            xn, it, err = _native.homotopy_solve(
-                self._host_A(), _numpy(y), tol, max_iterations, k_max)
-            return self._from_host(xn)[0], HomotopyReport(
-                iter=it, solution_error=err)
-        x, rep = self._fn(max_iterations, batch=None)(self._A, self._G, y,
-                                                      tol)
-        it, err = _read(rep.iter, int), _read(rep.solution_error, float)
-        # NaN-safe predicate; a lane that exhausted max_iterations is
-        # reported as-is — no precision fixes an iteration budget
-        if (self._precision == "certified" and not (err <= tol)
-                and it < max_iterations):
-            with _profiling.span("api.resolve"):
-                _profiling.count("api.resolved_lanes")
-                x, rep = self._fn(max_iterations, batch=None,
-                                  precision="high")(self._A, self._G, y, tol)
-                it = _read(rep.iter, int)
-                err = _read(rep.solution_error, float)
-        return x, HomotopyReport(iter=it, solution_error=err)
-
-    def solve_on_device(self, y: torch.Tensor, tolerance,
-                        max_iterations: int = 100):
-        """Solve for an (m,) tensor already on the solver's device, without
-        the certified re-solve: under "certified" the report's
-        solution_error is the certificate, to be checked against the
-        tolerance downstream. Returns (x, HomotopyReportArrays of 0-d
-        tensors). With a mesh the solve takes the sharded route, whose
-        certified re-solve runs inside it (as in the JAX package)."""
-        if self._mesh is not None:
-            return self._mesh_single(y, lambda Y: self._solve_batch_mesh(
-                Y, tolerance, max_iterations))
-        return self._fn(max_iterations, batch=None)(self._A, self._G, y,
-                                                    tolerance)
-
     def _no_mesh_path(self, what: str) -> None:
         if self._mesh is not None:
             raise ValueError(
@@ -748,7 +771,7 @@ class Homotopy(_GramSolver):
         y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
                              device=self._device)
         tol = self._tol(tolerance)
-        _check_max_iterations(max_iterations)
+        _certify.check_max_iterations(max_iterations)
         self._no_mesh_path("solve_path")
         precision = ("high" if self._precision == "certified"
                      else self._precision)
@@ -773,7 +796,7 @@ class Homotopy(_GramSolver):
         Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
                                    device=self._device)
         tol = self._tol(tolerance)
-        _check_max_iterations(max_iterations)
+        _certify.check_max_iterations(max_iterations)
         self._no_mesh_path("solve_path_batch")
         precision = ("high" if self._precision == "certified"
                      else self._precision)
@@ -784,83 +807,6 @@ class Homotopy(_GramSolver):
                 _homotopy.HomotopyReportArrays(
                     iter=_numpy(rep.iter),
                     solution_error=_numpy(rep.solution_error)))
-
-    def solve_batch(self, B, tolerance: float | None = None,
-                    max_iterations: int = 100, dense: bool = True):
-        """Batched solve over signals B of shape (batch, m).
-
-        Returns (X (batch, n), HomotopyReportArrays of per-lane tensors),
-        on the solver's device. ``dense=False`` returns ``(values,
-        indices, report)``, the compact slot-space solution (see
-        ``sparse_solvers_tpu.Homotopy.solve_batch``). Under "certified",
-        lanes whose certificate misses the tolerance are re-solved at
-        "high" and merged (api.py:754-784)."""
-        with _profiling.span("api.solve_batch", precision=self._precision):
-            return self._solve_batch(B, tolerance, max_iterations, dense)
-
-    def _solve_batch(self, B, tolerance, max_iterations: int, dense: bool):
-        Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
-                                   device=self._device)
-        _profiling.count("api.lanes", Y.shape[0])
-        tol = self._tol(tolerance)
-        _check_max_iterations(max_iterations)
-        if self._mesh is not None:
-            return self._solve_batch_mesh(Y, tol, max_iterations, dense)
-        if self._use_native():
-            k_max = self._k_max or min(self._n, max_iterations + 1)
-            X, iters, errs = self._from_host(*_native.homotopy_solve_batch(
-                self._host_A(), _numpy(Y), tol, max_iterations, k_max))
-            rep = _homotopy.HomotopyReportArrays(iter=iters,
-                                                 solution_error=errs)
-            if not dense:
-                return (*_compact_from_dense(X, k_max), rep)
-            return X, rep
-        X, rep = self._fn(max_iterations, batch=Y.shape[0], dense=dense)(
-            self._A, self._G, Y, tol)
-        if self._precision == "certified":
-            # NaN-safe predicate: a non-finite certificate counts as
-            # failing; lanes that exhausted max_iterations are reported
-            # as-is (no precision fixes an iteration budget). The re-solve
-            # covers the full batch and the merge keeps the fast result
-            # wherever the certificate held.
-            errs = _read(rep.solution_error, _host_array)
-            bad = (~(errs <= tol)) & (_read(rep.iter, _host_array)
-                                      < max_iterations)
-            if bad.any():
-                with _profiling.span("api.resolve"):
-                    _profiling.count("api.resolved_lanes", Y.shape[0])
-                    Xh, reph = self._fn(max_iterations, batch=Y.shape[0],
-                                        precision="high", dense=dense)(
-                        self._A, self._G, Y, tol)
-                    # the mask's upload from pageable memory waits for the
-                    # device
-                    with _profiling.span("solvers.sync", what="copy"):
-                        sel = torch.as_tensor(bad, device=self._device)
-                    X = _merge_lanes(sel, Xh, X, dense)
-                    rep = type(rep)(
-                        iter=torch.where(sel, reph.iter, rep.iter),
-                        solution_error=torch.where(
-                            sel, reph.solution_error, rep.solution_error))
-        if not dense:
-            return X[0], X[1], rep
-        return X, rep
-
-    def solve_batch_on_device(self, Y: torch.Tensor, tolerance,
-                              max_iterations: int = 100,
-                              dense: bool = True):
-        """Batched solve over a (batch, m) tensor already on the solver's
-        device, without host-side conversion or the certified re-solve:
-        under "certified" each lane's solution_error is the certificate,
-        to be checked against the tolerance downstream. Returns (X,
-        report), or ((values, indices), report) when ``dense=False``. With
-        a mesh the solve takes the sharded route, whose certified re-solve
-        runs inside it (as in the JAX package)."""
-        if self._mesh is not None:
-            out = self._solve_batch_mesh(Y, tolerance, max_iterations, dense)
-            return out if dense else (out[:2], out[2])
-        return self._fn(max_iterations, batch=Y.shape[0], dense=dense)(
-            self._A, self._G, Y, tolerance)
-
 
 class Omp(_GramSolver):
     """Orthogonal Matching Pursuit over a fixed sensing matrix A (m×n) —
@@ -884,6 +830,9 @@ class Omp(_GramSolver):
     and ``solve_batch`` on the C++ host engine. ``mesh``: as
     ``Homotopy``'s, through ``omp_sharded``.
     """
+
+    _report = OmpReport
+    _report_arrays = _omp.OmpReportArrays
 
     def __init__(self, A, k_max: int | None = None, mode: str = "fast",
                  gram: bool | None = None, precision: str | None = None,
@@ -946,6 +895,12 @@ class Omp(_GramSolver):
             return min(self._k_max, self._n, self._m)
         return max(1, min(max_iterations, self._m, self._n))
 
+    def _native_fn(self, batch: bool):
+        """The host engine's solve, of a batch or of one signal."""
+        return functools.partial(
+            _native.omp_solve_batch if batch else _native.omp_solve,
+            picks=self._picks)
+
     def _route_corr(self, batch: int | None, max_iterations: int) -> str:
         """The per-lane core's correlation update (api.py:1674-1689): the
         Gram gathers while batch·k_max < 2m or where ``gram=True`` pins
@@ -967,15 +922,6 @@ class Omp(_GramSolver):
         small = batch * self._resolved_k_max(max_iterations) < 2 * self._m
         return _homotopy_batch.route_batch_native(
             batch, self._n, self._A.dtype, sparse=small)
-
-    def _use_native(self, probe: bool = False) -> bool:
-        """Whether ``solve``/``solve_batch`` run on the host engine; exact
-        mode and a mesh never do (api.py:1565-1570)."""
-        if (self._engine == "jax" or self._mode == "exact"
-                or self._mesh is not None):
-            return False
-        return _route_native(self._engine, self._m, self._n, probe,
-                             self._device)
 
     def explain(self, batch: int | None = None,
                 max_iterations: int = 100) -> dict:
@@ -1081,7 +1027,7 @@ class Omp(_GramSolver):
         own, or ``_certified_l2_error`` of the core's solution.
         ``precision`` overrides the instance setting (the certified
         re-solve uses it)."""
-        _check_max_iterations(max_iterations)
+        _certify.check_max_iterations(max_iterations)
         precision = precision or self._precision
         certified = precision == "certified"
         # certified: the pick loop runs at one-pass precision, the
@@ -1114,142 +1060,10 @@ class Omp(_GramSolver):
             if batch is None:
                 return _first_lane((X, rep))
             if not dense:
-                return _compact_from_dense(X, k_max), rep
+                return _active_set.compact_from_dense(X, k_max), rep
             return X, rep
 
         return run
-
-    def solve(self, b, tolerance: float | None = None,
-              max_iterations: int = 100):
-        """Greedy-solve y ≈ Ax with ≤ max_iterations support picks;
-        returns (x, OmpReport) with x an (n,) tensor on the solver's
-        device. Under "certified", a solution whose certificate misses the
-        tolerance is re-solved at "high" (api.py:1771-1803)."""
-        with _profiling.span("api.solve", precision=self._precision):
-            _profiling.count("api.lanes")
-            return self._solve(b, tolerance, max_iterations)
-
-    def _solve(self, b, tolerance, max_iterations: int):
-        y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
-                             device=self._device)
-        tol = self._tol(tolerance)
-        _check_max_iterations(max_iterations)
-        if self._mesh is not None:
-            x, rep = self._mesh_single(y, lambda Y: self._solve_batch_mesh(
-                Y, tol, max_iterations))
-            return x, OmpReport(
-                iter=_read(rep.iter, int),
-                solution_error=_read(rep.solution_error, float))
-        if self._use_native():
-            xn, it, err = _native.omp_solve(
-                self._host_A(), _numpy(y), tol, max_iterations,
-                self._resolved_k_max(max_iterations), picks=self._picks)
-            return self._from_host(xn)[0], OmpReport(iter=it,
-                                                     solution_error=err)
-        x, rep = self._fn(max_iterations, batch=None)(self._A, self._G, y,
-                                                      tol)
-        it, err = _read(rep.iter, int), _read(rep.solution_error, float)
-        # NaN-safe predicate; a lane that exhausted max_iterations is
-        # reported as-is
-        if (self._precision == "certified" and not (err <= tol)
-                and it < max_iterations):
-            with _profiling.span("api.resolve"):
-                _profiling.count("api.resolved_lanes")
-                x, rep = self._fn(max_iterations, batch=None,
-                                  precision="high")(self._A, self._G, y, tol)
-                it = _read(rep.iter, int)
-                err = _read(rep.solution_error, float)
-        return x, OmpReport(iter=it, solution_error=err)
-
-    def solve_on_device(self, y: torch.Tensor, tolerance,
-                        max_iterations: int = 100):
-        """Solve for an (m,) tensor already on the solver's device, without
-        the certified re-solve: under "certified" the report's
-        solution_error is the certificate, to be checked against the
-        tolerance downstream. Returns (x, OmpReportArrays of 0-d
-        tensors). With a mesh the solve takes the sharded route, whose
-        certified re-solve runs inside it (as in the JAX package)."""
-        if self._mesh is not None:
-            return self._mesh_single(y, lambda Y: self._solve_batch_mesh(
-                Y, tolerance, max_iterations))
-        return self._fn(max_iterations, batch=None)(self._A, self._G, y,
-                                                    tolerance)
-
-    def solve_batch(self, B, tolerance: float | None = None,
-                    max_iterations: int = 100, dense: bool = True):
-        """Batched greedy solve over signals B of shape (batch, m).
-
-        Returns (X (batch, n), OmpReportArrays of per-lane tensors), on
-        the solver's device. ``dense=False`` returns ``(values, indices,
-        report)``, the compact slot-space solution; ``densify_batch``
-        rebuilds X exactly. Under "certified", lanes whose certificate
-        misses the tolerance are re-solved at "high" and merged
-        (api.py:1838-1861)."""
-        with _profiling.span("api.solve_batch", precision=self._precision):
-            return self._solve_batch(B, tolerance, max_iterations, dense)
-
-    def _solve_batch(self, B, tolerance, max_iterations: int, dense: bool):
-        Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
-                                   device=self._device)
-        _profiling.count("api.lanes", Y.shape[0])
-        tol = self._tol(tolerance)
-        _check_max_iterations(max_iterations)
-        if self._mesh is not None:
-            return self._solve_batch_mesh(Y, tol, max_iterations, dense)
-        if self._use_native():
-            k_max = self._resolved_k_max(max_iterations)
-            X, iters, errs = self._from_host(*_native.omp_solve_batch(
-                self._host_A(), _numpy(Y), tol, max_iterations, k_max,
-                picks=self._picks))
-            rep = _omp.OmpReportArrays(iter=iters, solution_error=errs)
-            if not dense:
-                return (*_compact_from_dense(X, k_max), rep)
-            return X, rep
-        out, rep = self._fn(max_iterations, batch=Y.shape[0], dense=dense)(
-            self._A, self._G, Y, tol)
-        if self._precision == "certified":
-            # NaN-safe predicate: a non-finite certificate counts as
-            # failing; lanes that exhausted max_iterations are reported
-            # as-is. The re-solve covers the full batch and the merge
-            # keeps the fast result wherever the certificate held.
-            errs = _read(rep.solution_error, _host_array)
-            bad = (~(errs <= tol)) & (_read(rep.iter, _host_array)
-                                      < max_iterations)
-            if bad.any():
-                with _profiling.span("api.resolve"):
-                    _profiling.count("api.resolved_lanes", Y.shape[0])
-                    outh, reph = self._fn(max_iterations, batch=Y.shape[0],
-                                          precision="high", dense=dense)(
-                        self._A, self._G, Y, tol)
-                    # the mask's upload from pageable memory waits for the
-                    # device
-                    with _profiling.span("solvers.sync", what="copy"):
-                        sel = torch.as_tensor(bad, device=self._device)
-                    out = _merge_lanes(sel, outh, out, dense)
-                    rep = type(rep)(
-                        iter=torch.where(sel, reph.iter, rep.iter),
-                        solution_error=torch.where(
-                            sel, reph.solution_error, rep.solution_error))
-        if not dense:
-            return out[0], out[1], rep
-        return out, rep
-
-    def solve_batch_on_device(self, Y: torch.Tensor, tolerance,
-                              max_iterations: int = 100,
-                              dense: bool = True):
-        """Batched solve over a (batch, m) tensor already on the solver's
-        device, without host-side conversion or the certified re-solve:
-        under "certified" each lane's solution_error is the certificate,
-        to be checked against the tolerance downstream. Returns (X,
-        report), or ((values, indices), report) when ``dense=False``. With
-        a mesh the solve takes the sharded route, whose certified re-solve
-        runs inside it (as in the JAX package)."""
-        if self._mesh is not None:
-            out = self._solve_batch_mesh(Y, tolerance, max_iterations, dense)
-            return out if dense else (out[:2], out[2])
-        return self._fn(max_iterations, batch=Y.shape[0], dense=dense)(
-            self._A, self._G, Y, tolerance)
-
 
 class Irls(_Solver):
     """IRLS solver over a fixed sensing matrix A (m×n, m ≥ n), the port of
@@ -1422,7 +1236,7 @@ class Irls(_Solver):
         """The IRLS loop over the lanes of Y (b, m) at the instance's
         precision; returns (X (b, n), IrlsReportArrays). With a mesh,
         ``irls_sharded`` over the mesh's factorization."""
-        _check_max_iterations(max_iterations)
+        _certify.check_max_iterations(max_iterations)
         if self._mesh is not None:
             from .parallel import sharding as _sh
             Q, R = self._mesh_qr()
@@ -1446,7 +1260,7 @@ class Irls(_Solver):
         y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
                              device=self._device)
         if self._use_native():
-            _check_max_iterations(max_iterations)
+            _certify.check_max_iterations(max_iterations)
             xn, it, err, spd = self._host_solver().solve(
                 _numpy(y), self._tol(tolerance), max_iterations)
             return self._from_host(xn)[0], IrlsReport(
@@ -1467,7 +1281,7 @@ class Irls(_Solver):
         if self._use_native():
             # the threaded C++ batch over the cached QR: one workspace per
             # thread, each lane the single-solve iteration
-            _check_max_iterations(max_iterations)
+            _certify.check_max_iterations(max_iterations)
             X, its, errs, spds = self._from_host(
                 *self._host_solver().solve_batch(
                     _numpy(Y), self._tol(tolerance), max_iterations))
@@ -1597,7 +1411,7 @@ class IrlsCg(_Solver):
         """The CG-IRLS loop over the lanes of Y (b, m) at the instance's
         precision; returns (X (b, n), IrlsReportArrays). With a mesh,
         ``irls_cg_sharded`` over this rank's columns, placed once."""
-        _check_max_iterations(max_iterations)
+        _certify.check_max_iterations(max_iterations)
         if self._mesh is not None:
             from .parallel import sharding as _sh
             if self._A_mesh is None:
@@ -1623,7 +1437,7 @@ class IrlsCg(_Solver):
         y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
                              device=self._device)
         if self._use_native():
-            _check_max_iterations(max_iterations)
+            _certify.check_max_iterations(max_iterations)
             xn, it, eps, broke = _native.irls_cg_solve(
                 self._host_A(), _numpy(y), self._tol(tolerance),
                 max_iterations, **self._host_knobs())
@@ -1643,7 +1457,7 @@ class IrlsCg(_Solver):
         Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
                                    device=self._device)
         if self._use_native():
-            _check_max_iterations(max_iterations)
+            _certify.check_max_iterations(max_iterations)
             X, its, eps, broke = self._from_host(*_native.irls_cg_solve_batch(
                 self._host_A(), _numpy(Y), self._tol(tolerance),
                 max_iterations, **self._host_knobs()))
@@ -1746,7 +1560,7 @@ class Cosamp(_Solver):
         """The rounds over the lanes of Y (b, m) at the instance's
         precision; returns (X (b, n), OmpReportArrays). With a mesh,
         ``cosamp_sharded`` over this rank's rows, placed once."""
-        _check_max_iterations(max_iterations)
+        _certify.check_max_iterations(max_iterations)
         if self._mesh is not None:
             from .parallel import sharding as _sh
             if self._A_mesh is None:

@@ -97,3 +97,19 @@ def scatter(values: torch.Tensor, indices: torch.Tensor,
         out.scatter_add_(-1, indices.clamp(max=n - 1).long(),
                          torch.where(live, values, torch.zeros_like(values)))
     return out
+
+
+def compact_from_dense(X: torch.Tensor, k_max: int):
+    """The compact (values, indices) form of a dense batch solution X
+    (b, n), the per-lane core's ``dense=False`` (api.py:2103-2115 of the
+    JAX package): per lane the ≤ k_max nonzero coordinates in ascending
+    index order, sentinel n beyond them. An exactly-zero active coordinate
+    contributes nothing either way."""
+    n = X.shape[1]
+    nz = X != 0
+    order = torch.sort((~nz).to(torch.int8), dim=1,
+                       stable=True).indices[:, :k_max]
+    keep = nz.gather(1, order)
+    vals = torch.where(keep, X.gather(1, order), torch.zeros_like(X[:, :1]))
+    idxs = torch.where(keep, order, torch.full_like(order, n))
+    return vals, idxs.to(torch.int32)

@@ -49,6 +49,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import certify
+from ..linalg.active_set import compact_from_dense
 from ..ops import blas, collectives
 from ..ops.operators import ColShardedOperator, RowShardedOperator
 from ..solvers.cosamp import solve_cosamp
@@ -158,17 +160,6 @@ def make_mesh(n_row: int | None = None, n_data: int = 1,
     return Mesh(n_data, n_row, device)
 
 
-def _cert_failures(errs, iters, tolerance, max_iterations: int):
-    """Certified-mode failure mask over the batch's lanes (host arrays):
-    lanes whose high-precision certificate missed the tolerance without
-    exhausting max_iterations (a non-finite certificate counts as
-    failing). Module-level so tests can replace it to force the
-    re-solve/merge branch; every rank calls it on the same gathered
-    values."""
-    return (~(np.asarray(errs) <= float(tolerance))
-            & (np.asarray(iters) < max_iterations))
-
-
 def _dtype_of(A) -> torch.dtype:
     return ndview._resolve_dtype(A.dtype)
 
@@ -269,12 +260,6 @@ def _gather_out(mesh: Mesh, X, dense: bool):
     if dense:
         return _gather_lanes(mesh, X)
     return tuple(_gather_lanes(mesh, part) for part in X)
-
-
-def _merge(sel: torch.Tensor, new, old, dense: bool):
-    if dense:
-        return torch.where(sel[:, None], new, old)
-    return tuple(torch.where(sel[:, None], a, b) for a, b in zip(new, old))
 
 
 def _check_precision(precision: str, allowed) -> None:
@@ -403,10 +388,8 @@ def _homotopy_placed(mesh: Mesh, A_local, Y_local, tolerance,
     the routing rules read (JAX reads the array it is handed: unpadded
     from a caller, padded from a façade); ``at_cache`` the façade's
     transposed copies of the shard."""
-    from ..api import _check_max_iterations
-    _check_max_iterations(max_iterations)
+    certify.check_max_iterations(max_iterations)
     _check_precision(precision, ("highest", "high", "default", "certified"))
-    certified = precision == "certified"
     n = A_local.shape[1]
     S = mesh.shape[ROW_AXIS]
     k_max = k_max or min(n, max_iterations + 1)
@@ -433,43 +416,31 @@ def _homotopy_placed(mesh: Mesh, A_local, Y_local, tolerance,
         raise ValueError(
             "overlap_blocks splits the batch-native driver's q psum; "
             "the vmapped core's analog is overlap_split")
-    X, iters, errs = _homotopy_run(
-        mesh, A_local, Y_local, G, tolerance, max_iterations, k_max,
-        "default" if certified else precision, gram, batch_native,
-        overlap_split, dense, overlap_blocks, overlap_mode, certified,
-        at_cache)
-    if certified:
-        bad = _cert_failures(errs.cpu().numpy(), iters.cpu().numpy(),
-                             tolerance, max_iterations)
-        if bad.any():
-            *Xh, reph = _homotopy_placed(
-                mesh, A_local, Y_local, tolerance, max_iterations, m=m,
-                k_max=k_max, gram=gram, overlap_split=overlap_split,
-                precision="high", batch_native=batch_native, dense=dense,
-                overlap_blocks=overlap_blocks, overlap_mode=overlap_mode,
-                G=G, at_cache=at_cache)
-            sel = torch.as_tensor(bad, device=iters.device)
-            X = _merge(sel, Xh[0] if dense else tuple(Xh), X, dense)
-            iters = torch.where(sel, reph.iter, iters)
-            errs = torch.where(sel, reph.solution_error, errs)
-    rep = HomotopyReportArrays(iter=iters, solution_error=errs)
-    if not dense:
-        return X[0], X[1], rep
-    return X, rep
+
+    def solve(precision=precision):
+        return _homotopy_run(
+            mesh, A_local, Y_local, G, tolerance, max_iterations, k_max,
+            precision, gram, batch_native, overlap_split, dense,
+            overlap_blocks, overlap_mode, at_cache)
+
+    return certify.certified_batch(solve, precision == "certified",
+                                   tolerance, max_iterations, dense)
 
 
 def _homotopy_run(mesh: Mesh, A_local, Y_local, G, tolerance,
-                  max_iterations: int, k_max: int, path_precision: str,
+                  max_iterations: int, k_max: int, precision: str,
                   gram: bool, batch_native: bool, overlap_split: int,
                   dense: bool, overlap_blocks: int, overlap_mode: str,
-                  certified: bool, at_cache):
-    """One sharded pass (sharding.py:76-161): this rank's lanes solved on
-    its row shard, the certificate when ``certified``, then every lane
-    gathered. Returns (X, iters, errs) of the whole batch."""
+                  at_cache):
+    """One sharded pass (sharding.py:76-161) at ``precision``: this rank's
+    lanes solved on its row shard, the certificate under "certified" (the
+    path then at "default"), then every lane gathered. Returns (X,
+    HomotopyReportArrays) of the whole batch."""
     row = mesh.row_group
     S = mesh.shape[ROW_AXIS]
     n = A_local.shape[1]
-    with blas.precision_scope(path_precision):
+    certified = precision == "certified"
+    with blas.precision_scope("default" if certified else precision):
         # a replicated Gram handed in (the façade's, computed once) skips
         # the per-call all-reduced build
         if G is None and gram:
@@ -502,8 +473,9 @@ def _homotopy_run(mesh: Mesh, A_local, Y_local, G, tolerance,
             c_part = blas.xgemm(r_loc, A_local)
         err = collectives.all_reduce(c_part, row).abs().amax(dim=-1).to(
             err.dtype)
-    return (_gather_out(mesh, X, dense), _gather_lanes(mesh, rep.iter),
-            _gather_lanes(mesh, err))
+    return _gather_out(mesh, X, dense), HomotopyReportArrays(
+        iter=_gather_lanes(mesh, rep.iter),
+        solution_error=_gather_lanes(mesh, err))
 
 
 def omp_sharded(mesh: Mesh, A, Y, tolerance, max_iterations: int,
@@ -549,16 +521,11 @@ def _omp_placed(mesh: Mesh, A_local, Y_local, tolerance,
                 G=None, picks: int = 1, at_cache=None):
     """``omp_sharded`` on this rank's shards (``m`` and ``at_cache`` as in
     ``_homotopy_placed``)."""
-    from ..api import _check_max_iterations
-    _check_max_iterations(max_iterations)
+    certify.check_max_iterations(max_iterations)
     _check_precision(precision, ("highest", "high", "default", "certified"))
-    certified = precision == "certified"
     n = A_local.shape[1]
     S = mesh.shape[ROW_AXIS]
     k_max = k_max or max(1, min(max_iterations, m, n))
-    # the user's argument: the certified re-solve passes this through, not
-    # the auto-resolved bool (an auto True handed back would pin "gram")
-    gram_arg = gram
     gram_forced = gram is True
     if G is not None:
         if gram is False:
@@ -583,41 +550,28 @@ def _omp_placed(mesh: Mesh, A_local, Y_local, tolerance,
         corr = "gram"
     else:
         corr = "sparse" if small else "dense"
-    X, iters, errs = _omp_run(
-        mesh, A_local, Y_local, G, tolerance, max_iterations, k_max,
-        "default" if certified else precision, gram, batch_native, corr,
-        dense, overlap_blocks, overlap_mode, certified, picks, at_cache)
-    if certified:
-        bad = _cert_failures(errs.cpu().numpy(), iters.cpu().numpy(),
-                             tolerance, max_iterations)
-        if bad.any():
-            *Xh, reph = _omp_placed(
-                mesh, A_local, Y_local, tolerance, max_iterations, m=m,
-                k_max=k_max, gram=gram_arg, precision="high",
-                batch_native=batch_native, dense=dense,
-                overlap_blocks=overlap_blocks, overlap_mode=overlap_mode,
-                G=G, picks=picks, at_cache=at_cache)
-            sel = torch.as_tensor(bad, device=iters.device)
-            X = _merge(sel, Xh[0] if dense else tuple(Xh), X, dense)
-            iters = torch.where(sel, reph.iter, iters)
-            errs = torch.where(sel, reph.solution_error, errs)
-    rep = OmpReportArrays(iter=iters, solution_error=errs)
-    if not dense:
-        return X[0], X[1], rep
-    return X, rep
+
+    def solve(precision=precision):
+        return _omp_run(
+            mesh, A_local, Y_local, G, tolerance, max_iterations, k_max,
+            precision, gram, batch_native, corr, dense, overlap_blocks,
+            overlap_mode, picks, at_cache)
+
+    return certify.certified_batch(solve, precision == "certified",
+                                   tolerance, max_iterations, dense)
 
 
 def _omp_run(mesh: Mesh, A_local, Y_local, G, tolerance,
-             max_iterations: int, k_max: int, path_precision: str,
+             max_iterations: int, k_max: int, precision: str,
              gram: bool, batch_native: bool, corr: str, dense: bool,
-             overlap_blocks: int, overlap_mode: str, certified: bool,
-             picks: int, at_cache):
-    """One sharded OMP pass (sharding.py:368-436), then every lane
-    gathered: (X, iters, errs) of the whole batch."""
-    from ..api import _compact_from_dense
+             overlap_blocks: int, overlap_mode: str, picks: int, at_cache):
+    """One sharded OMP pass (sharding.py:368-436) at ``precision``, as
+    ``_homotopy_run``'s, then every lane gathered: (X, OmpReportArrays) of
+    the whole batch."""
     row = mesh.row_group
     n = A_local.shape[1]
-    with blas.precision_scope(path_precision):
+    certified = precision == "certified"
+    with blas.precision_scope("default" if certified else precision):
         if G is None and gram:
             G = collectives.all_reduce(
                 blas.xgemm(A_local, A_local, trans_a=True), row)
@@ -645,9 +599,10 @@ def _omp_run(mesh: Mesh, A_local, Y_local, G, tolerance,
                     err = torch.sqrt(collectives.all_reduce(
                         (R * R).sum(dim=1), row).clamp(min=0)).to(err.dtype)
             if not dense:
-                X = _compact_from_dense(X, k_max)
-    return (_gather_out(mesh, X, dense), _gather_lanes(mesh, rep.iter),
-            _gather_lanes(mesh, err))
+                X = compact_from_dense(X, k_max)
+    return _gather_out(mesh, X, dense), OmpReportArrays(
+        iter=_gather_lanes(mesh, rep.iter),
+        solution_error=_gather_lanes(mesh, err))
 
 
 def gram_replicated(mesh: Mesh, A) -> torch.Tensor:
@@ -761,8 +716,7 @@ def _irls_placed(mesh: Mesh, Q_local, R, Y_local, tolerance,
                  max_iterations: int, mode: str = "fast", newton=None,
                  stabilized: bool = False):
     """``irls_sharded`` on this rank's shards."""
-    from ..api import _check_max_iterations
-    _check_max_iterations(max_iterations)
+    certify.check_max_iterations(max_iterations)
     if newton not in (None, "trsm", "gemm"):
         raise ValueError(f"newton must be 'trsm' or 'gemm', got {newton!r}")
     r_inv = None
@@ -799,8 +753,7 @@ def cosamp_sharded(mesh: Mesh, A, Y, k_sparsity: int, tolerance,
     all-reduced values. The pool clamp sizes by the true row count
     ``m_global`` (default A's rows). Returns (X (batch, n),
     OmpReportArrays) on every rank."""
-    from ..api import _check_max_iterations
-    _check_max_iterations(max_iterations)
+    certify.check_max_iterations(max_iterations)
     _check_precision(precision, ("highest", "high", "default"))
     A_local, Y_local = shard_inputs(mesh, A, Y)
     return _cosamp_placed(mesh, A_local, Y_local, k_sparsity, tolerance,
@@ -836,8 +789,7 @@ def irls_cg_sharded(mesh: Mesh, A, Y, tolerance, max_iterations: int, *,
     step, plus per outer step one all-reduce (MAX) of the change's maxima
     and one all-gather of each rank's top K+1 of |x| (the ε rule).
     Returns (X (batch, n), IrlsReportArrays) on every rank."""
-    from ..api import _check_max_iterations
-    _check_max_iterations(max_iterations)
+    certify.check_max_iterations(max_iterations)
     A_local = shard_columns(mesh, A)
     Y_local = shard_lanes(mesh, Y, A_local.dtype)
     return _irls_cg_placed(mesh, A_local, Y_local, A.shape[1], tolerance,

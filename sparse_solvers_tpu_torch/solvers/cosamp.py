@@ -46,7 +46,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops import blas, collectives
-from .homotopy import _select
+from . import loops
+from .loops import _select
 from .omp import OmpReportArrays
 
 
@@ -159,12 +160,10 @@ def solve_cosamp(A: torch.Tensor, Y: torch.Tensor, k_sparsity: int,
                       vals=vals2, r=r2, rss=rss2, done=~ok)
         return _select(ok, new, s)._replace(it=new.it, done=new.done)
 
-    while True:
-        live = ~state.done & (state.it < max_iterations) & (state.rss
-                                                             > tol2)
-        if not bool(live.any()):
-            break
-        state = _select(live, body(state), state)
+    def cond(s: _CState) -> torch.Tensor:
+        return ~s.done & (s.it < max_iterations) & (s.rss > tol2)
+
+    state = loops.synced_while(*loops.lanes(body, cond, state))[0]
 
     X = torch.zeros((b, n + 1), dtype=dtype, device=dev)
     X.scatter_(1, state.supp.long(), state.vals)

@@ -22,9 +22,9 @@ batched ``lax.while_loop``'s:
   * ``lax.cond`` becomes a per-lane select over both branches, as under
     vmap, so a broken lane's toggle still runs on the virtual orthogonal
     column (u1 = 0, vᵀv = 1) and no 1/0 enters its inverse;
-  * the loop reads ``any(live)`` on the host once per iteration; on a
-    card with a dense operator every trip after the first replays one
-    CUDA graph (``homotopy_batch.graphed_while``).
+  * the loop is ``loops.run``'s: it reads ``any(live)`` on the host once
+    per iteration, and replays each trip after the first as one CUDA graph
+    on a card with a dense operator.
 
 Two modes, as in the JAX package: ``"exact"`` recomputes c = Aᵀ(y − Ax)
 and q = Aᵀ(A d) as full dense products each iteration (K6's and K5's
@@ -45,6 +45,8 @@ from ..linalg import active_set
 from ..linalg import online_inverse as oinv
 from ..ops import blas
 from ..ops.operators import DenseOperator
+from . import loops
+from .loops import _select
 
 
 class HomotopyReportArrays(NamedTuple):
@@ -76,15 +78,6 @@ def _sign_deadzone(v: torch.Tensor, tol: float) -> torch.Tensor:
     """sign with a ±tol deadzone (reference: homotopy-cpu.cpp:59-67)."""
     one = torch.ones((), dtype=v.dtype, device=v.device)
     return torch.where(v > tol, one, torch.where(v < -tol, -one, 0 * one))
-
-
-def _select(keep_new: torch.Tensor, new, old):
-    """Per-lane select over (nested) state tuples: ``new`` where
-    ``keep_new`` (b,) holds, ``old`` elsewhere."""
-    if isinstance(new, tuple):
-        return type(new)(*(_select(keep_new, a, b) for a, b in zip(new, old)))
-    sel = keep_new.reshape(keep_new.shape + (1,) * (new.dim() - 1))
-    return torch.where(sel, new, old)
 
 
 def _find_max_gamma(q, c, x, direction, c_inf, mask, dtype):
@@ -347,20 +340,8 @@ def solve_homotopy_core(op, n: int, Y: torch.Tensor, tolerance,
         return (s.it == 0) | (~s.broke & (s.it < max_iterations)
                               & (s.c_inf > tol))
 
-    def trip(carry):
-        # a trip is the body and the test that decides the next one; the
-        # test's lanes select the next trip's body
-        s, live = carry
-        s = _select(live, body(s), s)
-        return s, cond(s)
-
-    from .homotopy_batch import graph_route, graphed_while, synced_while
-    carry = (state, cond(state))
-    if graph_route(carry, sharded=not isinstance(op, DenseOperator)):
-        carry = graphed_while(trip, lambda c: c[1], carry)
-    else:
-        carry = synced_while(trip, lambda c: c[1], carry)
-    state = carry[0]
+    state = loops.run(*loops.lanes(body, cond, state),
+                      sharded=not isinstance(op, DenseOperator))[0]
 
     report = HomotopyReportArrays(iter=state.it, solution_error=state.c_inf)
     if record_path:

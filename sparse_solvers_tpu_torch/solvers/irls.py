@@ -30,7 +30,8 @@ import torch
 from ..linalg.cholesky import cholesky_solve, cholesky_spd
 from ..ops import blas
 from ..ops.operators import DenseOperator
-from .homotopy import _select
+from . import loops
+from .loops import _select
 
 
 class IrlsReportArrays(NamedTuple):
@@ -158,11 +159,7 @@ def solve_irls_core(qop, R: torch.Tensor, Y: torch.Tensor, tolerance,
         failed = s._replace(started=true, spd=true, broke=true)
         return _select(isspd, committed, failed)
 
-    while True:
-        live = cond(state)
-        if not bool(live.any()):
-            break
-        state = _select(live, body(state), state)
+    state = loops.synced_while(*loops.lanes(body, cond, state))[0]
 
     X = state.x / state.x.sum(dim=-1, keepdim=True)  # irls-cpu.cpp:121
     return X, IrlsReportArrays(iter=state.it, solution_error=state.eps,

@@ -39,7 +39,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import blas, collectives
-from .homotopy import _select
+from . import loops
 from .irls import IrlsReportArrays
 
 
@@ -110,11 +110,7 @@ def _cg_solve(body_matvec, Y, Z0, cg_tol2, max_cg: int, dtype,
         p = torch.where(okv, r + beta * s.p, s.p)
         return _CgState(it=s.it + 1, z=z, r=r, p=p, rs=rs, broke=~ok)
 
-    while True:
-        live = cond(state)
-        if not bool(live.any()):
-            return state
-        state = _select(live, body(state), state)
+    return loops.synced_while(*loops.lanes(body, cond, state))[0]
 
 
 def _kth_largest(v_abs: torch.Tensor, k: int, group=None) -> torch.Tensor:
@@ -232,11 +228,14 @@ def solve_irls_cg_core(matvec, rmatvec, m: int, n: int, Y, tolerance,
             change=torch.where(ok, change, s.change),
             broke=s.broke | (live & cg.broke))
 
-    while True:
-        live = cond(state)
-        if not bool(live.any()):
-            break
-        state = body(state, live)
+    def trip(carry):
+        # the outer body gates every field by the lanes' live flags itself
+        s, live = carry
+        s = body(s, live)
+        return s, cond(s)
+
+    state = loops.synced_while(trip, lambda c: c[1],
+                               (state, cond(state)))[0]
 
     return state.x, IrlsReportArrays(iter=state.it,
                                      solution_error=state.eps,

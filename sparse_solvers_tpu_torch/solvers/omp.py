@@ -32,7 +32,8 @@ import torch
 from ..linalg import active_set
 from ..linalg import online_inverse as oinv
 from ..ops import blas
-from .homotopy import _select
+from . import loops
+from .loops import _select
 
 
 class OmpReportArrays(NamedTuple):
@@ -192,11 +193,7 @@ def solve_omp_core(op, n: int, Y: torch.Tensor, tolerance,
         return (~s.broke & ~s.done & (s.it < max_iterations)
                 & (s.inv.k < k_max) & (s.rss.clamp(min=0) > tol2))
 
-    while True:
-        live = cond(state)
-        if not bool(live.any()):
-            break
-        state = _select(live, body(state), state)
+    state = loops.synced_while(*loops.lanes(body, cond, state))[0]
 
     X = active_set.scatter(state.coef, state.inv.indices, n)
     if corr_gram:

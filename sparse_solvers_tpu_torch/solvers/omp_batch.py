@@ -18,13 +18,9 @@ loop; the reported error is a post-loop ℓ₂ certificate ‖y − Ax‖₂ at
 smaller slot buffers and zero-pads the state upward (``_embed_omp``).
 
 PyTorch idiom against the JAX form:
-  * the loop is a Python ``while`` on the host that reads ``any(live)``
-    once per round (one device sync); frozen lanes pass through a round
-    unchanged, exactly as under ``lax.while_loop``. Where
-    ``homotopy_batch.graph_route`` allows (the state on a card, no row or
-    trip-sync group), each tier's rounds after its first replay as one
-    CUDA graph (``graphed_while``), the Homotopy driver's route; the
-    values, spans and syncs are the host loop's;
+  * the loop is ``loops.run``'s, as the Homotopy driver's: one device
+    sync a round, and each tier's rounds after its first replayed as one
+    CUDA graph on a card and unsharded;
   * K4 updates the state's inverse in place, as the Pallas call aliases
     it, and commits it ungated as the JAX driver does (inert and
     degenerate lanes are not written by the kernel; a blown lane breaks
@@ -50,9 +46,9 @@ from ..linalg import active_set
 from ..ops import blas, collectives
 from ..ops.cuda import omp_insert as _oins
 from ..utils import profiling
-from .homotopy_batch import (_identity, _plan_tiers, _take1, graph_route,
-                             graphed_while, make_insert_column, make_qprod,
-                             synced_while)
+from . import loops
+from .homotopy_batch import (_identity, _plan_tiers, _take1,
+                             make_insert_column, make_qprod)
 from .omp import OmpReportArrays
 
 
@@ -291,11 +287,8 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
                 state = _embed_omp(state, Kt, n)
             step = lambda s, c=cap: body(s, c)
             live_fn = lambda s, c=cap: lane_live(s, c)
-            if graph_route(state, sharded=axis is not None
-                           or sync_axes is not None):
-                state = graphed_while(step, live_fn, state)
-            else:
-                state = synced_while(step, live_fn, state, sync_axes)
+            state = loops.run(step, live_fn, state, sharded=axis is not None,
+                              sync_axes=sync_axes)
 
     X = active_set.scatter(state.coef, state.indices, n)
     # the certificate: ‖y − Ax‖₂ per lane from the returned solution (a

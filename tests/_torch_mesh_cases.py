@@ -9,10 +9,11 @@ the problem functions below make from a seed. ``Launch`` starts the child
 on a world of processes; ``Launch.get`` waits for it and returns each
 rank's results.
 
-``instrument`` (in the child) wraps the batch drivers' loop
-(``synced_while``) and CG-IRLS's inner solve so each case also records the
-collectives issued inside every loop trip and every CG matvec: the
-counter-based form of the JAX tests' HLO collective counts.
+``instrument`` (in the child) wraps the solvers' eager loop
+(``loops.synced_while``, which every loop off a card runs) and CG-IRLS's
+inner solve so each case also records the collectives issued inside every
+loop trip and every CG matvec: the counter-based form of the JAX tests'
+HLO collective counts.
 """
 
 from __future__ import annotations
@@ -28,12 +29,12 @@ import numpy as np
 import torch
 
 import sparse_solvers_tpu_torch as pt
+from sparse_solvers_tpu_torch import certify
 from sparse_solvers_tpu_torch.ops import collectives
 from sparse_solvers_tpu_torch.parallel import distributed
 from sparse_solvers_tpu_torch.parallel import sharding as sh
-from sparse_solvers_tpu_torch.solvers import homotopy_batch as HB
 from sparse_solvers_tpu_torch.solvers import irls_cg as CG
-from sparse_solvers_tpu_torch.solvers import omp_batch as OB
+from sparse_solvers_tpu_torch.solvers import loops
 
 ROOT = Path(__file__).resolve().parents[1]
 CHILD = Path(__file__).resolve().parent / "_torch_dist_child.py"
@@ -137,9 +138,9 @@ def _delta(before: dict) -> list[int]:
 
 
 def instrument() -> None:
-    """Wrap the drivers' loop and CG-IRLS's inner solve so every trip and
+    """Wrap the solvers' loop and CG-IRLS's inner solve so every trip and
     every CG matvec records the collectives it issued."""
-    real_while, real_cg = HB.synced_while, CG._cg_solve
+    real_while, real_cg = loops.synced_while, CG._cg_solve
 
     def synced_while(body, live_fn, state, sync_axes=None):
         def counted(s):
@@ -165,7 +166,7 @@ def instrument() -> None:
         _RECORD["cg_solves"][0] += 1
         return real_cg(counted, *args, **kwargs)
 
-    HB.synced_while = OB.synced_while = synced_while
+    loops.synced_while = synced_while
     CG._cg_solve = cg_solve
     reset_records()
 
@@ -263,12 +264,12 @@ def _force_lane0(real):
 
 
 def _resolve(mesh, route, **kw):
-    real = sh._cert_failures
-    sh._cert_failures = _force_lane0(real)
+    real = certify.failed_lanes
+    certify.failed_lanes = _force_lane0(real)
     try:
         res = _out(route(mesh, precision="certified", **kw), "cert_")
     finally:
-        sh._cert_failures = real
+        certify.failed_lanes = real
     res.update(_out(route(mesh, precision="high", **kw), "high_"))
     return res
 

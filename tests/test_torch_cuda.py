@@ -828,8 +828,7 @@ def test_graph_route_bit_equal_to_eager(dev, case, monkeypatch):
     driver over three tiers with picks 1, with picks 4 (gOMP) and
     gram-free."""
     from sparse_solvers_tpu_torch.ops import dispatch
-    from sparse_solvers_tpu_torch.solvers import homotopy_batch as hb
-    from sparse_solvers_tpu_torch.solvers import omp_batch
+    from sparse_solvers_tpu_torch.solvers import loops
     if case in ("resolve", "single"):
         run, check = _facade_case(dev, case, monkeypatch)
     elif case.startswith("core"):
@@ -841,7 +840,7 @@ def test_graph_route_bit_equal_to_eager(dev, case, monkeypatch):
     run()                                  # built and warm
     torch.cuda.synchronize()
     replays = []
-    real = hb._TripGraph.replay
+    real = loops._TripGraph.replay
 
     def counted(self):
         replays.append(1)
@@ -849,10 +848,9 @@ def test_graph_route_bit_equal_to_eager(dev, case, monkeypatch):
     got = {}
     for route in ("graph", "eager"):
         with monkeypatch.context() as mp:
-            mp.setattr(hb._TripGraph, "replay", counted)
+            mp.setattr(loops._TripGraph, "replay", counted)
             if route == "eager":
-                mp.setattr(hb, "graph_route", lambda *a, **k: False)
-                mp.setattr(omp_batch, "graph_route", lambda *a, **k: False)
+                mp.setattr(loops, "graph_route", lambda *a, **k: False)
             replays.clear()
             dispatch.reset_launches()
             out = run()
@@ -944,13 +942,13 @@ def test_omp_capture_leaves_the_peak_memory_of_the_eager_loop(
     ``torch.cuda.max_memory_allocated()`` above the allocations it starts
     from by what the eager loop does, within 1 MiB: a capture holds no
     second cuBLAS workspace or other buffer beside the trip's own."""
-    from sparse_solvers_tpu_torch.solvers import omp_batch
+    from sparse_solvers_tpu_torch.solvers import loops
     run, _ = _omp_case(dev, case)
     peaks = {}
     for route in ("eager", "graph", "eager", "graph"):   # warm, then read
         with monkeypatch.context() as mp:
             if route == "eager":
-                mp.setattr(omp_batch, "graph_route", lambda *a, **k: False)
+                mp.setattr(loops, "graph_route", lambda *a, **k: False)
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)

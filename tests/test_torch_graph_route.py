@@ -1,5 +1,5 @@
-"""The drivers' graph route (``homotopy_batch.graph_route`` and
-``graphed_while``) on the CPU: the rule that picks it, the loops that stay
+"""The drivers' graph route (``loops.graph_route`` and ``graphed_while``,
+chosen by ``loops.run``) on the CPU: the rule that picks it, the loops that stay
 on ``synced_while`` (CPU tensors, a row group or a group that syncs the
 trips, a row-sharded operator, the batch driver's breakpoint history),
 the OMP batch driver asking the same rule, the trip's write-back into the
@@ -22,7 +22,7 @@ from sparse_solvers_tpu_torch.ops.operators import (DenseOperator,
                                                     RowShardedOperator)
 from sparse_solvers_tpu_torch.solvers import homotopy as core
 from sparse_solvers_tpu_torch.solvers import homotopy_batch as hb
-from sparse_solvers_tpu_torch.solvers import omp_batch
+from sparse_solvers_tpu_torch.solvers import loops, omp_batch
 from sparse_solvers_tpu_torch.utils import profiling
 
 TOL = 0.01
@@ -59,17 +59,15 @@ def _eager_capture(fn, device):
 
 
 def _rule_says(mp, rule):
-    """Replace the rule where each driver looks it up: the OMP driver
-    holds its own name for it."""
-    mp.setattr(hb, "graph_route", rule)
-    mp.setattr(omp_batch, "graph_route", rule)
+    """Replace the rule where every loop looks it up."""
+    mp.setattr(loops, "graph_route", rule)
 
 
 @pytest.fixture
 def stand_in_graphs(monkeypatch):
     """The graph route taken on the CPU, with eager stand-in graphs."""
     _rule_says(monkeypatch, lambda *a, **k: True)
-    monkeypatch.setattr(hb, "_capture", _eager_capture)
+    monkeypatch.setattr(loops, "_capture", _eager_capture)
 
 
 def _t(a):
@@ -91,12 +89,12 @@ def _flat(out):
 def test_the_rule_takes_the_graph_route_only_on_an_unsharded_card_loop(
         sharded, host_reads, leaf, want):
     state = (leaf, (_OnCard(), leaf))
-    assert hb.graph_route(state, sharded=sharded,
-                          host_reads=host_reads) is want
+    assert loops.graph_route(state, sharded=sharded,
+                             host_reads=host_reads) is want
 
 
 def test_a_state_with_one_cpu_tensor_stays_eager():
-    assert not hb.graph_route((_OnCard(), torch.zeros(1)))
+    assert not loops.graph_route((_OnCard(), torch.zeros(1)))
 
 
 @pytest.mark.parametrize("case", ["plain", "record_path", "axis",
@@ -108,15 +106,17 @@ def test_each_loop_asks_the_rule_with_what_it_observes(case, monkeypatch):
     A, Y, _ = compressive_problem(64, 128, 4, 3, seed=5)
     A, Y = _t(A), _t(Y)
     asked = []
-    real = hb.graph_route
+    real = loops.graph_route
 
     def spy(state, sharded=False, host_reads=False):
         asked.append((sharded, host_reads))
         assert not real(state, sharded, host_reads)   # CPU tensors
         return real(state, sharded, host_reads)
-    monkeypatch.setattr(hb, "graph_route", spy)
-    monkeypatch.setattr(hb, "graphed_while", lambda *a: (_ for _ in ()).throw(
-        AssertionError("the graph route ran")))
+
+    def no_graph(*a):
+        raise AssertionError("the graph route ran")
+    monkeypatch.setattr(loops, "graph_route", spy)
+    monkeypatch.setattr(loops, "graphed_while", no_graph)
     # one process: the group's sum and max are the rank's own values
     monkeypatch.setattr(collectives, "all_reduce",
                         lambda t, group, op="sum": t)
@@ -144,14 +144,14 @@ def test_the_omp_driver_asks_the_rule_with_what_it_observes(case,
     replay a round after each tier's first, and the sharded ones through
     ``synced_while``, which counts no replay."""
     asked = []
-    real = hb.graph_route
+    real = loops.graph_route
 
     def on_card(state, sharded=False, host_reads=False):
         asked.append((sharded, host_reads))
-        return real(tuple(_OnCard() for _ in hb._leaves(state)), sharded,
+        return real(tuple(_OnCard() for _ in loops._leaves(state)), sharded,
                     host_reads)
     _rule_says(monkeypatch, on_card)
-    monkeypatch.setattr(hb, "_capture", _eager_capture)
+    monkeypatch.setattr(loops, "_capture", _eager_capture)
     # one process: the group's sum and max are the rank's own values
     monkeypatch.setattr(collectives, "all_reduce",
                         lambda t, group, op="sum": t)
@@ -264,8 +264,8 @@ def test_write_back_refuses_what_it_cannot_write_back_whole():
     fields that share one are refused; an in-place field and a new
     result are written back."""
     a, b = torch.arange(4.0), torch.arange(4.0) + 10
-    flag = hb._captured_trip(lambda s: (s[0].add_(1), s[1] * 2),
-                             lambda s: s[0] > 4, (a, b))
+    flag = loops._captured_trip(lambda s: (s[0].add_(1), s[1] * 2),
+                                lambda s: s[0] > 4, (a, b))
     assert torch.equal(a, torch.arange(4.0) + 1)
     assert torch.equal(b, 2 * torch.arange(4.0) + 20)
     assert not bool(flag)
@@ -274,7 +274,7 @@ def test_write_back_refuses_what_it_cannot_write_back_whole():
                         (lambda s: (s[0][:4], s[1]), (a, b)),
                         (lambda s: (s[0] + 1, s[1] + 1), (a, a[:4]))]:
         with pytest.raises(ValueError, match="written back|writes each"):
-            hb._captured_trip(body, lambda s: s[0] > 0, state)
+            loops._captured_trip(body, lambda s: s[0] > 0, state)
 
 
 def _gamma_with_host_upload(q, c, x, direction, c_inf, mask, dtype):

@@ -195,10 +195,11 @@ def test_certified(runs, mesh):
 
 @pytest.mark.parametrize("mesh", MESHES)
 def test_certified_resolve_merges_the_failed_lane(runs, mesh, monkeypatch):
-    """A certificate failure forced on lane 0 through the ``_cert_failures``
-    seam (every rank sees the gathered batch, so every rank takes the
-    re-solve): lane 0 is the "high" solve's, bit for bit, and matches JAX's
-    re-solved lane within 1e-5 with equal iterations."""
+    """A certificate failure forced on lane 0 through the port's
+    ``certify.failed_lanes`` seam and JAX's ``_cert_failures`` (every rank
+    sees the gathered batch, so every rank takes the re-solve): lane 0 is
+    the "high" solve's, bit for bit, and matches JAX's re-solved lane
+    within 1e-5 with equal iterations."""
     got = C.same_on_every_rank(_get(runs, mesh, "hom_resolve"))
     np.testing.assert_array_equal(got["cert_X"][0], got["high_X"][0])
     assert got["cert_iter"][0] == got["high_iter"][0]

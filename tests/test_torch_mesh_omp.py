@@ -189,11 +189,11 @@ def test_certified(runs, mesh):
 
 @pytest.mark.parametrize("mesh", MESHES)
 def test_certified_resolve_merges_the_failed_lane(runs, mesh, monkeypatch):
-    """A certificate failure forced on lane 0 (the ``_cert_failures``
-    seam): lane 0 is the "high" solve's bit for bit, and JAX's re-solved
-    lane within 1e-5 with an equal pick count; the other lanes keep the
-    certified run (within the tolerance or at the pick budget, see
-    ``test_certified``)."""
+    """A certificate failure forced on lane 0 (the port's
+    ``certify.failed_lanes`` seam, JAX's ``_cert_failures``): lane 0 is
+    the "high" solve's bit for bit, and JAX's re-solved lane within 1e-5
+    with an equal pick count; the other lanes keep the certified run
+    (within the tolerance or at the pick budget, see ``test_certified``)."""
     got = C.same_on_every_rank(_get(runs, mesh, "omp_resolve"))
     np.testing.assert_array_equal(got["cert_X"][0], got["high_X"][0])
     assert got["cert_iter"][0] == got["high_iter"][0]

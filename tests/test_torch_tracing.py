@@ -15,9 +15,11 @@ torch = pytest.importorskip(
     "torch", reason="the port's tests need torch (pip install .[torch])")
 
 import sparse_solvers_tpu_torch as pt
-from _torch_cases import TORCH_ROUTE, compressive_problem
+from _torch_cases import TORCH_ROUTE, compressive_problem, irls_problem
 from sparse_solvers_tpu_torch import api as papi
-from sparse_solvers_tpu_torch.solvers import homotopy_batch, omp_batch
+from sparse_solvers_tpu_torch.ops.operators import DenseOperator
+from sparse_solvers_tpu_torch.solvers import (cosamp, homotopy_batch, irls,
+                                              irls_cg, omp, omp_batch)
 from sparse_solvers_tpu_torch.utils import profiling
 
 TOL = 0.01
@@ -187,6 +189,71 @@ def test_omp_driver_records_iterations_through_synced_while():
     assert len(syncs) == len(iters) + len(homotopy_batch._plan_tiers(
         16, 12, None))
     assert all(s.attrs == {"what": "live"} for s in syncs)
+
+
+def _eager_loop_solve(family):
+    """A small solve of a family whose loop runs ``loops.synced_while``."""
+    A, Y, _ = compressive_problem(128, 512, 6, 8, seed=2)
+    A, Y = torch.from_numpy(A), torch.from_numpy(Y)
+    if family == "omp_core":
+        return omp.solve_omp_core(DenseOperator(A), 512, Y, 1e-3, 12)
+    if family == "cosamp":
+        return cosamp.solve_cosamp(A, Y, 6, 1e-3, 20)
+    if family == "irls":
+        A, Y = (torch.from_numpy(a) for a in irls_problem(40, 25, 6, 3, 5))
+        Q, R = torch.linalg.qr(A)
+        return irls.solve_irls(Q, R, Y, 1e-6, 50)
+    return irls_cg.solve_irls_cg(A[:64, :256].double(), Y[:4, :64].double(),
+                                 1e-6, 40)
+
+
+@pytest.mark.parametrize("loop", ["omp_core", "irls", "irls_cg_outer",
+                                  "irls_cg_inner", "cosamp"])
+def test_each_eager_loop_records_one_iteration_span_a_trip(loop,
+                                                           monkeypatch):
+    """The loops on ``loops.synced_while`` (the per-lane OMP core, IRLS,
+    CG-IRLS's outer and inner loops, CoSaMP): a traced solve records one
+    ``solvers.iter`` a trip, each with the ``live`` read that decides the
+    next: one per reported iteration (and breaking trip) for an outer loop
+    and one per CG step for the inner. X and the reports are the untraced
+    solve's, bit for bit."""
+    family = loop.rsplit("_", 1)[0] if loop.startswith("irls_cg") else loop
+    steps = []
+    real_cg = irls_cg._cg_solve
+
+    def counted(*args, **kwargs):
+        state = real_cg(*args, **kwargs)
+        steps.append(int(state.it.max()))
+        return state
+    monkeypatch.setattr(irls_cg, "_cg_solve", counted)
+    want = _eager_loop_solve(family)
+    steps.clear()
+    with torch.profiler.profile(activities=CPU):
+        with profiling.span("call"):
+            got = _eager_loop_solve(family)
+    [call] = profiling.calls()
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1], want[1]):
+        assert torch.equal(g, w)
+    byid = {s.span_id: s for s in call.spans}
+    trips = _named(call, "solvers.iter")
+    inner = [s for s in trips if byid[s.parent_id].name == "solvers.iter"]
+    outer = [s for s in trips if byid[s.parent_id].name == "call"]
+    assert len(inner) + len(outer) == len(trips)
+    # a lane is live for its iterations and, where the loop broke on it
+    # (IRLS's spd failure, CG-IRLS's breakdown), the trip that broke it
+    rep = got[1]
+    lane_trips = rep.iter + getattr(rep, "spd_failure", 0)
+    assert len(outer) == int(lane_trips.max()) > 0
+    # a CG solve each outer trip, each a loop of its own
+    loops_run = 1 + len(steps)
+    assert len(steps) == (len(outer) if family == "irls_cg" else 0)
+    assert len(inner) == sum(steps)
+    if loop == "irls_cg_inner":
+        assert sum(steps) > len(outer)
+    syncs = _named(call, "solvers.sync")
+    assert all(s.attrs == {"what": "live"} for s in syncs)
+    assert len(syncs) == len(trips) + loops_run
 
 
 def test_solve_path_batch_counts_the_history_reads():

@@ -124,8 +124,15 @@ def test_solve_records_the_per_lane_core(problem):
     assert _parents(call, "api.path") == ["api.solve"]
     assert _parents(call, "api.certify") == ["api.solve"]
     assert not _named(call, "solvers.tier")
+    # the core's loop: one solvers.iter a round, each ending in the live
+    # read that decides the next, after the one before the first
+    trips = _named(call, "solvers.iter")
+    assert set(_parents(call, "solvers.iter")) == {"api.path"}
+    assert len(trips) == _call(solver, "solve", Y).iter
     assert [s.attrs["what"] for s in _named(call, "solvers.sync")] == [
-        "read", "read"]
+        "live"] * (len(trips) + 1) + ["read", "read"]
+    assert _parents(call, "solvers.sync")[1:len(trips) + 1] == [
+        "solvers.iter"] * len(trips)
     assert call.counters == {"api.lanes": 1}
 
 
