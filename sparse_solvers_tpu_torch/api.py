@@ -65,6 +65,7 @@ from .solvers import homotopy as _homotopy
 from .solvers import homotopy_batch as _homotopy_batch
 from .solvers import irls as _irls
 from .solvers import irls_cg as _irls_cg
+from .solvers import loops as _loops
 from .solvers import omp as _omp
 from .solvers import omp_batch as _omp_batch
 from .utils import ndview
@@ -188,6 +189,12 @@ def _certified_l2_error(A: torch.Tensor, x: torch.Tensor,
         return _omp_batch.l2_certificate(A, x, y)
 
 
+def _f32_key(tolerance, dtype) -> float:
+    """The tolerance as the loops compare with it, in A's dtype: two
+    tolerances that round alike give the same trips."""
+    return float(torch.tensor(float(tolerance), dtype=dtype))
+
+
 def _first_lane(out):
     """A one-lane result without its lane axis (nested tuples kept)."""
     if isinstance(out, tuple):
@@ -301,8 +308,9 @@ class _Solver:
 class _GramSolver(_Solver):
     """What the Homotopy and OMP façades share besides A: its lazy Gram
     (the JAX package's ``_lazy_gram``) and the gram-free drivers'
-    transposed copies, and the entry points ``solve``, ``solve_batch`` and
-    their ``_on_device`` forms with the certified re-solve
+    transposed copies, the graph-route loops kept from the newest solve's
+    key (``loops.Kept``), and the entry points ``solve``, ``solve_batch``
+    and their ``_on_device`` forms with the certified re-solve
     (``certify.py``)."""
 
     # each façade's own: its report classes, and ``_resolved_k_max``,
@@ -313,6 +321,9 @@ class _GramSolver(_Solver):
         super()._load(A, device, mesh)
         self._G_cache = None
         self._AT_cache: dict[bool, torch.Tensor] = {}
+        # the trip graphs and state buffers of the newest solve's loops,
+        # read again by a later solve of the same key
+        self._kept = _loops.Kept()
         # the mesh route's shard of A, replicated Gram and transposed
         # copies of the shard, placed at first use
         self._A_mesh = self._G_mesh = None
@@ -362,8 +373,10 @@ class _GramSolver(_Solver):
         """Replace column j of the sensing matrix on the solver's device
         (gallery churn) and rewrite the cached Gram's row and column from
         one Aᵀ·col product instead of the O(mn²) rebuild (api.py:215-252);
-        the transposed copies are dropped. No reference analog: its solver
-        holds a const view of A (policies.h:42)."""
+        the transposed copies and the kept loops, which read the old
+        operands, are dropped. No reference analog: its solver holds a
+        const view of A (policies.h:42)."""
+        self._kept.drop()
         self._replace_column(j, col)
         self._AT_cache.clear()
         self._AT_mesh.clear()
@@ -708,8 +721,12 @@ class Homotopy(_GramSolver):
         (x, report), or ((values, indices), report) when ``dense=False``,
         or (x, report, histories) with ``record_path``. ``y`` is (m,) for
         ``batch=None`` and (batch, m) otherwise. ``precision`` overrides
-        the instance setting (the certified re-solve uses it)."""
+        the instance setting (the certified re-solve uses it). A solve at
+        the instance's precision keeps its loops' graphs for the next solve
+        of the same key; the re-solve and the recorded paths keep
+        nothing."""
         _certify.check_max_iterations(max_iterations)
+        keeping = precision is None and not record_path
         precision = precision or self._precision
         certified = precision == "certified"
         if record_path and certified:
@@ -723,16 +740,21 @@ class Homotopy(_GramSolver):
 
         def path(A, G, Y, tol):
             with _blas.precision_scope(path_precision):
+                # without a Gram the driver runs gram-free
+                AT = (self._transposed() if batch_native and G is None
+                      else None)
+                keep = self._kept.entry((
+                    batch_native, Y.shape[0], max_iterations, k_max,
+                    _f32_key(tol, A.dtype), path_precision, self._mode,
+                    sparse, id(A), id(G), id(AT))) if keeping else None
                 if batch_native:
-                    # without a Gram the driver runs gram-free
                     return _homotopy_batch.solve_homotopy_batch(
                         A, G, Y, tol, max_iterations, k_max, dense=dense,
-                        record_path=record_path,
-                        AT=None if G is not None else self._transposed())
+                        record_path=record_path, AT=AT, keep=keep)
                 return _homotopy.solve_homotopy_core(
                     DenseOperator(A, G), self._n, Y, tol, max_iterations,
                     k_max, mode=self._mode, sparse_matvec=sparse,
-                    record_path=record_path, compact=not dense)
+                    record_path=record_path, compact=not dense, keep=keep)
 
         def run(A, G, y, tol):
             Y = y if batch is not None else y[None]
@@ -1026,8 +1048,11 @@ class Omp(_GramSolver):
         "certified" the report's error is the certificate: the driver's
         own, or ``_certified_l2_error`` of the core's solution.
         ``precision`` overrides the instance setting (the certified
-        re-solve uses it)."""
+        re-solve uses it). The driver's solve at the instance's precision
+        keeps its loops' graphs for the next solve of the same key; the
+        re-solve keeps nothing."""
         _certify.check_max_iterations(max_iterations)
+        keeping = precision is None
         precision = precision or self._precision
         certified = precision == "certified"
         # certified: the pick loop runs at one-pass precision, the
@@ -1044,10 +1069,14 @@ class Omp(_GramSolver):
                 if driver:
                     # without a Gram the driver runs gram-free; its
                     # post-loop certificate is its own api.certify span
+                    AT = None if G is not None else self._transposed()
+                    keep = self._kept.entry((
+                        Y.shape[0], max_iterations, k_max,
+                        _f32_key(tol, A.dtype), path_precision, self._picks,
+                        id(A), id(G), id(AT))) if keeping else None
                     return _omp_batch.solve_omp_batch(
                         A, G, Y, tol, max_iterations, k_max, dense=dense,
-                        picks=self._picks,
-                        AT=None if G is not None else self._transposed())
+                        picks=self._picks, AT=AT, keep=keep)
                 # G rides along for the per-pick inserts whenever it
                 # exists; corr selects only the correlation update
                 X, rep = _omp.solve_omp_core(

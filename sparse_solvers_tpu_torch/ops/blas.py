@@ -79,6 +79,13 @@ def _operands(*tensors: torch.Tensor):
     return list(tensors)
 
 
+def scope_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the scope's precision multiplies it (``_operands``): a
+    caller that already holds the bf16 copy of an operand widens that
+    copy instead, which gives the same values."""
+    return _operands(t)[0]
+
+
 def xgemm(A: torch.Tensor, B: torch.Tensor, *, trans_a: bool = False,
           trans_b: bool = False) -> torch.Tensor:
     """C = op(A) @ op(B) at the scope's precision, in A's dtype, batched

@@ -166,7 +166,7 @@ def solve_homotopy_core(op, n: int, Y: torch.Tensor, tolerance,
                         max_iterations: int, k_max: int, *,
                         mode: str = "fast", sparse_matvec: bool = False,
                         use_gk: bool = False, record_path: bool = False,
-                        compact: bool = False):
+                        compact: bool = False, keep: dict | None = None):
     """Homotopy path loop over a sensing operator for signals Y (b, m),
     one lane each.
 
@@ -178,7 +178,13 @@ def solve_homotopy_core(op, n: int, Y: torch.Tensor, tolerance,
     indices and the (b, max_iterations+1) λ), and returned as a third
     element: (X, report, (hist_v, hist_i, hist_l)). ``compact`` returns
     ((values, indices), report), the k_max-slot solution with sentinel
-    index n, instead of the dense (b, n) X."""
+    index n, instead of the dense (b, n) X.
+
+    ``keep`` (an entry of a ``loops.Kept``, whose key holds every
+    argument but Y) keeps what the loop's body reads across calls: the
+    operator, the lane index and a copy of Y, which each call overwrites,
+    and the loop's trip graph with its state. Returned tensors are never
+    the kept state's own."""
     if mode not in ("fast", "exact"):
         raise ValueError(f"mode must be 'fast' or 'exact', got {mode!r}")
     fast = mode == "fast"
@@ -187,7 +193,14 @@ def solve_homotopy_core(op, n: int, Y: torch.Tensor, tolerance,
     b = Y.shape[0]
     # every comparison with tol happens in the working dtype
     tol = float(torch.tensor(float(tolerance), dtype=dtype))
-    lanes = torch.arange(b, device=dev)
+    kept = {} if keep is None else keep
+    if "operands" in kept:
+        # exact mode's body reads Y: this call's goes into the kept copy
+        kept["operands"][2].copy_(Y)
+    else:
+        kept["operands"] = (op, torch.arange(b, device=dev),
+                            Y if keep is None else Y.clone())
+    op, lanes, Y = kept["operands"]
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
 
     # --- init (homotopy-cpu.cpp:215-229); x0 = 0, so c0 = Aᵀy ---
@@ -341,13 +354,17 @@ def solve_homotopy_core(op, n: int, Y: torch.Tensor, tolerance,
                               & (s.c_inf > tol))
 
     state = loops.run(*loops.lanes(body, cond, state),
-                      sharded=not isinstance(op, DenseOperator))[0]
+                      sharded=not isinstance(op, DenseOperator),
+                      slot=kept.setdefault("loop", loops.Slot()))[0]
 
-    report = HomotopyReportArrays(iter=state.it, solution_error=state.c_inf)
+    report = HomotopyReportArrays(iter=state.it.clone(),
+                                  solution_error=state.c_inf.clone())
     if record_path:
-        return state.x, report, (state.hist_v, state.hist_i, state.hist_l)
+        return state.x.clone(), report, (
+            state.hist_v.clone(), state.hist_i.clone(),
+            state.hist_l.clone())
     if compact:
         # the loop's own active set: scatter(values, indices) is x exactly
         vals = active_set.take(state.x, state.inv.indices, n)
-        return (vals, state.inv.indices), report
-    return state.x, report
+        return (vals, state.inv.indices.clone()), report
+    return state.x.clone(), report

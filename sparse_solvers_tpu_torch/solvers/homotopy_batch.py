@@ -99,7 +99,8 @@ def _identity(v):
 
 def make_qprod(A: torch.Tensor, psum=_identity, overlap_blocks: int = 1,
                overlap_mode: str = "psum", axis=None,
-               axis_size: int | None = None):
+               axis_size: int | None = None,
+               A16: torch.Tensor | None = None):
     """q = AᵀA·D product factory shared by both batch drivers
     (homotopy_batch.py:124-229). Unsharded, or in the plain ``psum``
     form: the K1 bf16 kernel exactly when the scope's precision is
@@ -110,7 +111,8 @@ def make_qprod(A: torch.Tensor, psum=_identity, overlap_blocks: int = 1,
     ``overlap_blocks`` > 1 (sharded) forces the two-step form and splits
     the second product into column blocks, each with its own all-reduce:
     every q element is the same local-row dot and the same reduction as
-    the unsplit form.
+    the unsplit form. ``A16``: K1's bf16 copy of A, made here when not
+    given.
 
     ``overlap_mode="ppermute"`` (sharded; ``axis`` the row group of
     ``axis_size`` ≥ 2 ranks) is the collective-matmul ring: q's columns
@@ -164,7 +166,7 @@ def make_qprod(A: torch.Tensor, psum=_identity, overlap_blocks: int = 1,
 
         return blocks
     if blas.current_precision() == "default":
-        A16 = A.to(torch.bfloat16)
+        A16 = A.to(torch.bfloat16) if A16 is None else A16
         return lambda D: psum(_kern.normal_matvec_fused_bf16(A16, D))
     return lambda D: psum(blas.xgemm(blas.xgemm(D, A, trans_b=True), A))
 
@@ -285,7 +287,8 @@ def solve_homotopy_batch(A: torch.Tensor, G: torch.Tensor | None,
                          record_path: bool = False,
                          AT: torch.Tensor | None = None, axis=None,
                          overlap_blocks: int = 1, overlap_mode: str = "psum",
-                         axis_size: int | None = None, sync_axes=None):
+                         axis_size: int | None = None, sync_axes=None,
+                         keep: dict | None = None):
     """Fast-mode batched homotopy — the slot-space throughput driver.
 
     A: (m, n) f32; G = AᵀA (n, n), or None to run gram-free; Y: (b, m), all
@@ -312,7 +315,12 @@ def solve_homotopy_batch(A: torch.Tensor, G: torch.Tensor | None,
     reductions over rows end in all-reduces over ``axis``.
     ``overlap_blocks``, ``overlap_mode`` and ``axis_size`` shape the q
     reduction (``make_qprod``); ``sync_axes`` is a group over which every
-    rank runs the same number of loop trips (``loops.synced_while``)."""
+    rank runs the same number of loop trips (``loops.synced_while``).
+
+    ``keep`` (an entry of a ``loops.Kept``, whose key holds every
+    argument but Y) keeps what the tiers' bodies read across calls: the
+    operands they share (``_operands``) and each tier's trip graph with
+    its state. Returned tensors are never the kept state's own."""
     n = A.shape[1]
     b = Y.shape[0]
     T = max_iterations + 1
@@ -332,17 +340,22 @@ def solve_homotopy_batch(A: torch.Tensor, G: torch.Tensor | None,
                 torch.zeros((0, T), dtype=A.dtype, device=dev))
         return out, report
     tiers = _plan_tiers(k_max, max_iterations, ladder)
+    if G is None and AT is None:
+        AT = transposed_copy(A)
+    kept = {} if keep is None else keep
+    if "operands" not in kept:
+        kept["operands"] = _operands(A, G, AT, b, axis, overlap_blocks,
+                                     overlap_mode, axis_size)
     state = hist = None
     for t, Kt in enumerate(tiers):
         # non-final tiers stop before any lane could need slot Kt
         cap = None if t == len(tiers) - 1 else Kt - 1
-        if G is None and AT is None:
-            AT = transposed_copy(A)
         with profiling.span("solvers.tier", K=Kt):
             init, body, lane_live = make_stepper(
                 A, G, Y, tolerance, max_iterations, Kt, it_cap=cap, AT=AT,
                 axis=axis, overlap_blocks=overlap_blocks,
-                overlap_mode=overlap_mode, axis_size=axis_size)
+                overlap_mode=overlap_mode, axis_size=axis_size,
+                operands=kept["operands"])
             state = init() if state is None else _embed(state, Kt, n)
             if record_path:
                 hist = _grow_history(hist, state, T, Kt, n)
@@ -357,12 +370,15 @@ def solve_homotopy_batch(A: torch.Tensor, G: torch.Tensor | None,
                     return s
             state = loops.run(body, lane_live, state,
                               sharded=axis is not None,
-                              host_reads=record_path, sync_axes=sync_axes)
+                              host_reads=record_path, sync_axes=sync_axes,
+                              slot=kept.setdefault(("tier", Kt, cap),
+                                                   loops.Slot()))
     if dense:
         out = active_set.scatter(state.x_act, state.indices, n)
     else:
-        out = (state.x_act, state.indices)
-    report = HomotopyReportArrays(iter=state.it, solution_error=state.c_inf)
+        out = (state.x_act.clone(), state.indices.clone())
+    report = HomotopyReportArrays(iter=state.it.clone(),
+                                  solution_error=state.c_inf.clone())
     if record_path:
         return out, report, hist
     return out, report
@@ -392,11 +408,32 @@ def densify_batch(values, indices, n: int) -> torch.Tensor:
     return active_set.scatter(values, indices, n)
 
 
+def _operands(A: torch.Tensor, G: torch.Tensor | None,
+              AT: torch.Tensor | None, b: int, axis=None,
+              overlap_blocks: int = 1, overlap_mode: str = "psum",
+              axis_size: int | None = None):
+    """What every tier's init and body read besides Y and the state, made
+    once a solve in the precision scope in force: the lane index, the row
+    shards' sum, the q product (``make_qprod``), K1's bf16 copy of A
+    where K1 carries q (else None), and the insert's Gram entries
+    (``make_insert_column``)."""
+    psum = ((lambda v: collectives.all_reduce(v, axis)) if axis is not None
+            else _identity)
+    gdiag, insert_column = make_insert_column(A, G, AT, psum)
+    A16 = (A.to(torch.bfloat16) if overlap_mode == "psum"
+           and overlap_blocks <= 1 and blas.current_precision() == "default"
+           else None)
+    return (torch.arange(b, device=A.device), psum,
+            make_qprod(A, psum, overlap_blocks, overlap_mode, axis,
+                       axis_size, A16), A16, gdiag, insert_column)
+
+
 def make_stepper(A: torch.Tensor, G: torch.Tensor | None, Y: torch.Tensor,
                  tolerance, max_iterations: int, k_max: int,
                  it_cap: int | None = None, AT: torch.Tensor | None = None,
                  axis=None, overlap_blocks: int = 1,
-                 overlap_mode: str = "psum", axis_size: int | None = None):
+                 overlap_mode: str = "psum", axis_size: int | None = None,
+                 operands=None):
     """Build ``(init, body, lane_live)`` for the batch driver — exposed so
     tests can step the iteration. ``init()`` computes the initial state;
     ``body(s)`` runs one iteration and consumes ``s`` (in-place updates);
@@ -404,7 +441,8 @@ def make_stepper(A: torch.Tensor, G: torch.Tensor | None, Y: torch.Tensor,
     freezes lanes at an iteration bound (a capacity-ladder tier). ``G=None``
     runs gram-free (``make_insert_column``). ``axis`` is the row group of
     a sharded run; the overlap arguments shape its q reduction
-    (``make_qprod``)."""
+    (``make_qprod``). ``operands``: ``_operands``' of the same arguments,
+    which the tiers of a solve share; made here when not given."""
     b = Y.shape[0]
     n = A.shape[1]
     K = k_max
@@ -422,17 +460,17 @@ def make_stepper(A: torch.Tensor, G: torch.Tensor | None, Y: torch.Tensor,
     tol = float(torch.tensor(float(tolerance), dtype=dtype))
     prec = blas.current_precision()
     dev = A.device
-    bidx = torch.arange(b, device=dev)
-    psum = ((lambda v: collectives.all_reduce(v, axis)) if axis is not None
-            else _identity)
-    qprod = make_qprod(A, psum, overlap_blocks, overlap_mode, axis,
-                       axis_size)
-    gdiag, insert_column = make_insert_column(A, G, AT, psum)
+    bidx, psum, qprod, A16, gdiag, insert_column = operands or _operands(
+        A, G, AT, b, axis, overlap_blocks, overlap_mode, axis_size)
 
     def init() -> _BState:
         # solve_homotopy_core's init, batched (homotopy-cpu.cpp:215-229)
         with blas.precision_scope(prec):
-            C0 = psum(blas.xgemm(Y, A))            # c0 = Aᵀy per lane
+            # c0 = Aᵀy per lane; where K1 runs, its bf16 copy of A holds
+            # the values "default" rounds A to: widened, it spares a
+            # second rounding of A beside it
+            C0 = psum(blas.xgemm(Y, A) if A16 is None else torch.matmul(
+                blas.scope_operand(Y), A16.to(dtype)))
         idx0 = torch.argmax(C0.abs(), dim=1).to(torch.int32)
         c0 = _take1(C0, idx0)
         c_inf0 = c0.abs()

@@ -6,6 +6,12 @@ between them from what its caller observes.
 The batch drivers and the per-lane Homotopy core call ``run``; the
 per-lane OMP core, IRLS, CG-IRLS and CoSaMP call ``synced_while`` and stay
 eager; the per-lane cores step in the carry form ``lanes`` builds.
+
+A caller that solves again with the same shapes keeps its loops' graphs
+across calls (``Kept``, which the façades own): a loop given a ``Slot``
+that holds a captured trip writes its new state into the tensors that
+trip was captured over and replays it from the first trip on, with no
+eager trip and no capture.
 """
 
 from __future__ import annotations
@@ -88,15 +94,48 @@ def graph_route(state, sharded: bool = False,
 
 
 def run(body, live_fn, state, *, sharded: bool = False,
-        host_reads: bool = False, sync_axes=None):
+        host_reads: bool = False, sync_axes=None, slot=None):
     """``body`` over ``state`` while any lane of ``live_fn`` lives, on the
     loop ``graph_route`` picks from what the caller observes: a collective
     in the loop (``sharded``, or a ``sync_axes`` group, which then syncs
-    the trips) and host reads in the body."""
+    the trips) and host reads in the body. ``slot`` (a ``Slot``) keeps the
+    graph route's trip for the next run of the same loop."""
     if graph_route(state, sharded=sharded or sync_axes is not None,
                    host_reads=host_reads):
-        return graphed_while(body, live_fn, state)
+        return graphed_while(body, live_fn, state, slot)
     return synced_while(body, live_fn, state, sync_axes)
+
+
+class Slot:
+    """Where one loop keeps its captured trip (a ``_TripGraph``, None
+    until the loop first takes the graph route) from one run to the
+    next."""
+
+    def __init__(self):
+        self.trip = None
+
+
+class Kept:
+    """What a caller keeps of its graph-route loops across calls, for its
+    newest key only: ``entry(key)`` is a dict in which the drivers keep
+    each loop's ``Slot`` and the tensors and closures their bodies read
+    that they would otherwise build per call. The key is everything a
+    trip bakes in; another key drops the old entry, and with it its
+    graphs and buffers, before anything new is built. Its owner solves
+    one call at a time: two at once would write the same buffers."""
+
+    def __init__(self):
+        self._key, self._entry = None, {}
+
+    def entry(self, key) -> dict:
+        if key != self._key:
+            self.drop()
+            self._key = key
+        return self._entry
+
+    def drop(self) -> None:
+        """Forget the entry: its graphs and buffers are freed."""
+        self._key, self._entry = None, {}
 
 
 # per card: the memory pool every trip graph is captured into, the side
@@ -105,6 +144,13 @@ def run(body, live_fn, state, *, sharded: bool = False,
 _pools: dict = {}
 _streams: dict = {}
 _newest: dict = {}
+
+
+def _release_cublas_workspaces(device: torch.device) -> None:
+    """Free the workspace cuBLAS keeps for each stream it ran on (a card
+    has them; a replay uses the one its capture took)."""
+    if device.type == "cuda":
+        torch._C._cuda_clearCublasWorkspaces()
 
 
 def _capture(fn, device: torch.device):
@@ -120,17 +166,16 @@ def _capture(fn, device: torch.device):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.device(device):
         stream.wait_stream(torch.cuda.current_stream(device))
-        # cuBLAS keeps a workspace for each stream it ran on; cleared
-        # before and after, the capture's own lands in the pool and no
-        # stream holds a second one beside the caller's
-        torch._C._cuda_clearCublasWorkspaces()
+        # cleared before and after, the capture's own workspace lands in
+        # the pool and no stream holds a second one beside the caller's
+        _release_cublas_workspaces(device)
         with torch.cuda.stream(stream):
             graph.capture_begin(pool=_pools[key])
             try:
                 out = fn()
             finally:
                 graph.capture_end()
-        torch._C._cuda_clearCublasWorkspaces()
+        _release_cublas_workspaces(device)
         torch.cuda.current_stream(device).wait_stream(stream)
     _newest[key] = graph
     return graph, out
@@ -141,7 +186,9 @@ class _TripGraph:
     the body, a copy of every field the body replaced back into the
     state's own tensor, and the liveness ``any()`` into ``flag``.
     ``launches`` holds the hand kernels' launches of one trip, which
-    ``ops/dispatch.launches`` counted only once, at the capture."""
+    ``ops/dispatch.launches`` counted only once, at the capture. It holds
+    ``state`` and the body, so that every tensor the graph reads lives as
+    long as it does."""
 
     def __init__(self, body, live_fn, state):
         before = dict(_dispatch.launches)
@@ -153,6 +200,22 @@ class _TripGraph:
                          for k, n in _dispatch.launches.items()
                          if n != before[k]}
         _dispatch.launches.update(before)
+        self.state, self._reads = state, (body, live_fn)
+
+    def load(self, state):
+        """Write ``state`` into the tensors the trip was captured over
+        (a field that already is one is left as it is); returns them."""
+        dst, src = _leaves(self.state), _leaves(state)
+        if len(src) != len(dst) or any(
+                s.shape != d.shape or s.dtype != d.dtype
+                for s, d in zip(src, dst)):
+            raise ValueError(
+                "a kept trip graph replays only on a state of the shapes "
+                "and dtypes it was captured over")
+        for s, d in zip(src, dst):
+            if s is not d:
+                d.copy_(s)
+        return self.state
 
     def replay(self) -> bool:
         """Run the trip once more; whether any lane is still live."""
@@ -185,24 +248,38 @@ def _captured_trip(body, live_fn, state) -> torch.Tensor:
     return live_fn(state).any()
 
 
-def graphed_while(body, live_fn, state):
-    """``synced_while`` (unsharded) with each trip after the first
-    replayed as one CUDA graph (``graph_route`` says where). The first
-    trip runs eagerly, which also warms every lazy set-up its kernels
-    have; its state becomes the graph's buffers. A trip is captured (a
-    ``solvers.capture`` span) while the card still runs the first one,
-    before its liveness read, and replayed while any lane lives, each
-    replay counted in ``solvers.graph_replays``. Spans, syncs, values and
-    the hand kernels' launch counts are the eager loop's. The graph lives
-    for this loop only."""
+def graphed_while(body, live_fn, state, slot=None):
+    """``synced_while`` (unsharded) with each trip replayed as one CUDA
+    graph (``graph_route`` says where). A loop without a kept trip runs
+    its first trip eagerly, which also warms every lazy set-up its kernels
+    have, and writes its results back into ``state``'s own tensors, which
+    become the graph's buffers; it captures a trip (a ``solvers.capture``
+    span) while the card still runs the first one, before its liveness
+    read, and keeps it in ``slot`` when one is given. A loop whose
+    ``slot`` holds a trip writes ``state`` into that trip's tensors and
+    replays it from the first trip on (counted once in
+    ``solvers.graph_reuses``), as a capture does releasing the cuBLAS
+    workspaces, which no replay uses. Each replay is counted in
+    ``solvers.graph_replays``. Spans, syncs, values and the hand kernels'
+    launch counts are the eager loop's. Returns the state's tensors: a
+    kept trip's, which its next run overwrites."""
+    trip = None if slot is None else slot.trip
+    if trip is not None:
+        state = trip.load(state)
     if not _any_live(live_fn, state, None):
         return state
-    with profiling.span("solvers.iter"):
-        state = body(state)
-        live = live_fn(state).any()
-        trip = _TripGraph(body, live_fn, state)
-        with profiling.span("solvers.sync", what="live"):
-            go = bool(live)
+    if trip is None:
+        with profiling.span("solvers.iter"):
+            live = _captured_trip(body, live_fn, state)
+            trip = _TripGraph(body, live_fn, state)
+            with profiling.span("solvers.sync", what="live"):
+                go = bool(live)
+        if slot is not None:
+            slot.trip = trip
+    else:
+        profiling.count("solvers.graph_reuses")
+        _release_cublas_workspaces(_leaves(state)[0].device)
+        go = True
     while go:
         with profiling.span("solvers.iter"):
             go = trip.replay()

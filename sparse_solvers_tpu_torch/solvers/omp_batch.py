@@ -96,7 +96,8 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
                     picks: int = 1, AT: torch.Tensor | None = None,
                     axis=None, overlap_blocks: int = 1,
                     overlap_mode: str = "psum",
-                    axis_size: int | None = None, sync_axes=None):
+                    axis_size: int | None = None, sync_axes=None,
+                    keep: dict | None = None):
     """Batched greedy solve; returns (X (b, n), OmpReportArrays).
 
     A: (m, n) f32; G = AᵀA (n, n), or None to run gram-free; Y: (b, m), all
@@ -119,7 +120,13 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
 
     ``axis``, ``overlap_blocks``, ``overlap_mode``, ``axis_size`` and
     ``sync_axes``: the row-sharded run, as ``solve_homotopy_batch``'s;
-    the reported error is then the all-reduced certificate."""
+    the reported error is then the all-reduced certificate.
+
+    ``keep`` (an entry of a ``loops.Kept``, whose key holds every
+    argument but Y) keeps what the rounds read across calls: c₀ and
+    ‖y‖², written anew each call into the kept tensors, the constants,
+    the q product and the insert's column, and each tier's trip graph
+    with its state. Returned tensors are never the kept state's own."""
     n = A.shape[1]
     b = Y.shape[0]
     dtype = A.dtype
@@ -145,11 +152,6 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
     # every comparison with tol and tol² happens in f32, as in JAX
     tol_t = torch.tensor(float(tolerance), dtype=dtype)
     tol2 = float(tol_t * tol_t)
-    bidx = torch.arange(b, device=dev)
-    one8 = torch.ones((), dtype=torch.int8, device=dev)
-    # gOMP's taken score, written from the device (a graphed round uploads
-    # nothing from the host)
-    neg1 = torch.full((), -1.0, dtype=dtype, device=dev)
 
     # c₀ at "highest": the rhs of every LS re-solve and the dominant noise
     # term of the rss identity (omp_batch.py:169-183); the certificate
@@ -161,9 +163,23 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
     with blas.precision_scope("highest"):
         C0 = psum(blas.xgemm(Y, A))
     yty = psum((Y * Y).sum(dim=1))
-    qprod = make_qprod(A, psum, overlap_blocks, overlap_mode, axis,
-                       axis_size)
-    _, insert_column = make_insert_column(A, G, AT, psum)
+    kept = {} if keep is None else keep
+    if "operands" in kept:
+        # the rounds' graphs read the kept c₀ and ‖y‖²: this call's go
+        # into them
+        kept["operands"][0].copy_(C0)
+        kept["operands"][1].copy_(yty)
+    else:
+        kept["operands"] = (
+            C0, yty, torch.arange(b, device=dev),
+            torch.ones((), dtype=torch.int8, device=dev),
+            # gOMP's taken score, written from the device (a graphed round
+            # uploads nothing from the host)
+            torch.full((), -1.0, dtype=dtype, device=dev),
+            make_qprod(A, psum, overlap_blocks, overlap_mode, axis,
+                       axis_size),
+            make_insert_column(A, G, AT, psum)[1])
+    C0, yty, bidx, one8, neg1, qprod, insert_column = kept["operands"]
 
     def lane_live(s: _OBState, it_cap: int | None) -> torch.Tensor:
         live = (~s.broke & ~s.done & (s.it < max_iterations)
@@ -272,15 +288,17 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
             if state is None:
                 zeros = lambda *shape: torch.zeros(shape, dtype=dtype,
                                                    device=dev)
+                # c and rss are the state's own: a trip writes them back
                 state = _OBState(
-                    it=torch.zeros(b, dtype=torch.int32, device=dev), c=C0,
+                    it=torch.zeros(b, dtype=torch.int32, device=dev),
+                    c=C0.clone(),
                     mask=torch.zeros((b, n), dtype=torch.int8, device=dev),
                     inv=zeros(b, Kt, Kt), b_act=zeros(b, Kt),
                     coef=zeros(b, Kt),
                     indices=torch.full((b, Kt), n, dtype=torch.int32,
                                        device=dev),
                     kk=torch.zeros(b, dtype=torch.int32, device=dev),
-                    rss=yty,
+                    rss=yty.clone(),
                     broke=torch.zeros(b, dtype=torch.bool, device=dev),
                     done=torch.zeros(b, dtype=torch.bool, device=dev))
             else:
@@ -288,7 +306,9 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
             step = lambda s, c=cap: body(s, c)
             live_fn = lambda s, c=cap: lane_live(s, c)
             state = loops.run(step, live_fn, state, sharded=axis is not None,
-                              sync_axes=sync_axes)
+                              sync_axes=sync_axes,
+                              slot=kept.setdefault(("tier", Kt, cap),
+                                                   loops.Slot()))
 
     X = active_set.scatter(state.coef, state.indices, n)
     # the certificate: ‖y − Ax‖₂ per lane from the returned solution (a
@@ -297,7 +317,7 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
     with profiling.span("api.certify"), blas.precision_scope(cert_prec):
         err = (l2_certificate(A, X, Y) if axis is None
                else l2_certificate(A, X, Y, psum))
-    report = OmpReportArrays(iter=state.it, solution_error=err)
+    report = OmpReportArrays(iter=state.it.clone(), solution_error=err)
     if not dense:
-        return (state.coef, state.indices), report
+        return (state.coef.clone(), state.indices.clone()), report
     return X, report

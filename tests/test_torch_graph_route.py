@@ -7,10 +7,19 @@ state's tensors run through an eager stand-in for the CUDA graph
 (bit-equal to the eager loop for Homotopy's loops and for OMP, gOMP and
 gram-free OMP, the same spans, one replay counted a trip after the
 first), and the γ scan's bound filled on the device bit for bit as the
-host upload gave it. The CUDA graph itself runs in
+host upload gave it. Graphs kept across a façade's calls (``loops.Kept``):
+a sequence of calls bit-equal to the eager loop with each loop captured
+once and then replayed from its first trip (one ``solvers.graph_reuses``
+a reused loop), answers that the next call leaves alone, another key or
+``update_column`` freeing the kept entry, the "high" re-solve capturing
+anew and keeping nothing, a deleted façade freeing its graphs, and a kept
+trip refusing a state of other shapes. The CUDA graph itself runs in
 ``tests/test_torch_cuda.py``.
 """
 
+import weakref
+
+import numpy as np
 import pytest
 torch = pytest.importorskip(
     "torch", reason="the port's tests need torch (pip install .[torch])")
@@ -319,3 +328,274 @@ def test_the_scan_bound_filled_on_the_device_is_bit_identical(dtype):
     want_gamma, want_idx = _gamma_with_host_upload(*args)
     assert torch.equal(gamma, want_gamma) and torch.equal(idx, want_idx)
     assert gamma[5] == torch.finfo(dtype).max
+
+
+# --- graphs kept across a façade's calls -----------------------------------
+
+def _names(call, name):
+    return [s for s in call.spans if s.name == name]
+
+
+def _loops_run(call) -> set:
+    """The loops of a call that made a trip: each tier's capacity K (the
+    batch drivers' ``solvers.tier`` spans around at least one trip), or
+    the core's one loop."""
+    tiers = _names(call, "solvers.tier")
+    if not tiers:
+        return {"core"} if _names(call, "solvers.iter") else set()
+    parents = {s.parent_id for s in _names(call, "solvers.iter")}
+    return {t.attrs["K"] for t in tiers if t.span_id in parents}
+
+
+FACADES = {
+    # the slot-space driver: batch·k_max ≥ 2m, tiers 16, 24 and 48
+    "homotopy_batch": (lambda A: pt.Homotopy(A, k_max=48, precision="default",
+                                             **TORCH_ROUTE), 6, 40),
+    # the per-lane core: a single solve
+    "homotopy_core": (lambda A: pt.Homotopy(A, precision="default",
+                                            **TORCH_ROUTE), None, 40),
+    # the OMP driver: batch·k_max ≥ 2m, tiers 16, 24 and 48
+    "omp": (lambda A: pt.Omp(A, k_max=48, precision="default",
+                             **TORCH_ROUTE), 12, 40),
+    "gomp": (lambda A: pt.Omp(A, k_max=48, precision="default", picks=4,
+                              **TORCH_ROUTE), 12, 40),
+}
+
+
+def _signals(kind, seed):
+    batch = FACADES[kind][1]
+    A, Y, _ = compressive_problem(128, 512, 14, batch or 1, seed=seed)
+    return A, Y if batch else Y[0]
+
+
+def _solve(solver, kind, Y, tol=TOL, max_iterations=None):
+    max_iterations = max_iterations or FACADES[kind][2]
+    if FACADES[kind][1] is None:
+        x, rep = solver.solve(Y, tol, max_iterations)
+        return [x, torch.tensor(rep.iter), torch.tensor(rep.solution_error)]
+    X, rep = solver.solve_batch(Y, tol, max_iterations)
+    return [X, rep.iter, rep.solution_error]
+
+
+def _traced(fn):
+    """``fn()`` under the CPU profiler: (its result, its call record)."""
+    profiling.clear()
+    with torch.profiler.profile(activities=CPU):
+        out = fn()
+    [call] = profiling.calls()
+    return out, call
+
+
+def _kept_tensor(solver):
+    """A state tensor of one of the façade's kept trips."""
+    slots = [v for v in solver._kept._entry.values()
+             if isinstance(v, loops.Slot) and v.trip is not None]
+    assert slots
+    return loops._leaves(slots[0].trip.state)[1]
+
+
+@pytest.mark.parametrize("kind", sorted(FACADES))
+def test_kept_graphs_replay_a_sequence_of_calls_as_the_eager_loop(
+        kind, stand_in_graphs, monkeypatch):
+    """Four calls with different signals on one façade: every answer
+    bit-equal to the eager loop's on another façade, every loop (a tier)
+    captured once, in the first call that runs it, with an eager first
+    trip, and replayed from its first trip in every later call, one
+    ``solvers.graph_reuses`` a reused loop."""
+    A = _signals(kind, 0)[0]
+    Ys = [_signals(kind, seed)[1] for seed in (0, 1, 2, 0)]
+    graph = FACADES[kind][0](A)
+    with monkeypatch.context() as mp:
+        _rule_says(mp, lambda *a, **k: False)
+        eager = FACADES[kind][0](A)
+        want = [_solve(eager, kind, Y) for Y in Ys]
+    seen, reused = set(), 0
+    for i, Y in enumerate(Ys):
+        got, call = _traced(lambda: _solve(graph, kind, Y))
+        assert all(torch.equal(g, w) for g, w in zip(got, want[i]))
+        runs = _loops_run(call)
+        new, old = runs - seen, runs & seen
+        trips = len(_names(call, "solvers.iter"))
+        assert runs
+        assert len(_names(call, "solvers.capture")) == len(new)
+        assert call.counters.get("solvers.graph_reuses", 0) == len(old)
+        assert call.counters["solvers.graph_replays"] == trips - len(new)
+        seen |= runs
+        reused += len(old)
+    # the last call repeats the first's signals: every loop it runs is kept
+    assert not new and reused
+
+
+@pytest.mark.parametrize("kind", sorted(FACADES))
+def test_a_kept_graphs_answer_survives_the_next_call(kind, stand_in_graphs):
+    """What a call returned (the answer, the iterations and the errors;
+    the compact pair of a batch) is the caller's: the next call, which
+    replays the same kept graphs over the same buffers, leaves it
+    unchanged."""
+    A, Y1 = _signals(kind, 3)
+    Y2 = _signals(kind, 4)[1]
+    solver = FACADES[kind][0](A)
+    first = _solve(solver, kind, Y1)
+    held = [t.clone() for t in first]
+    compact = None
+    if FACADES[kind][1] is not None:
+        compact = solver.solve_batch(Y1, TOL, FACADES[kind][2], dense=False)
+        held_compact = [t.clone() for t in compact[:2]]
+    _solve(solver, kind, Y2)
+    assert all(torch.equal(a, b) for a, b in zip(first, held))
+    if compact is not None:
+        _solve(solver, kind, Y2)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(compact[:2], held_compact))
+
+
+@pytest.mark.parametrize("change", ["tolerance", "max_iterations", "batch",
+                                    "precision"])
+@pytest.mark.parametrize("kind", ["homotopy_batch", "omp"])
+def test_another_key_drops_the_kept_graphs_and_captures_anew(
+        kind, change, stand_in_graphs, monkeypatch):
+    """A call whose trips bake in something else (the f32 tolerance, the
+    iteration budget, the batch size, the path's precision) frees the
+    kept entry before it captures its own, and answers as the eager loop
+    does; a tolerance that rounds to the same f32 keeps the entry."""
+    A, Y = _signals(kind, 5)
+    solver = FACADES[kind][0](A)
+    _solve(solver, kind, Y)
+    tol, max_iterations = TOL, None
+    if change == "tolerance":
+        same = float(np.nextafter(np.float64(np.float32(TOL)), 1.0))
+        assert np.float32(same) == np.float32(TOL) and same != TOL
+        _, call = _traced(lambda: _solve(solver, kind, Y, tol=same))
+        assert not _names(call, "solvers.capture")
+        tol = 2 * TOL
+    elif change == "max_iterations":
+        max_iterations = FACADES[kind][2] + 1
+    elif change == "batch":
+        Y = Y[:-1]
+    else:
+        solver._precision = "high"
+    old = weakref.ref(_kept_tensor(solver))
+    got, call = _traced(lambda: _solve(solver, kind, Y, tol, max_iterations))
+    assert old() is None
+    assert len(_names(call, "solvers.capture")) == len(_loops_run(call)) > 0
+    with monkeypatch.context() as mp:
+        _rule_says(mp, lambda *a, **k: False)
+        eager = FACADES[kind][0](A)
+        eager._precision = solver._precision
+        want = _solve(eager, kind, Y, tol, max_iterations)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("kind", ["homotopy_batch", "homotopy_core", "omp"])
+def test_update_column_drops_the_kept_graphs(kind, stand_in_graphs,
+                                             monkeypatch):
+    """``update_column`` replaces operands the kept graphs read: it frees
+    the entry at once, and the next call captures anew over the new
+    operands and answers as a façade built on the updated A."""
+    A, Y = _signals(kind, 6)
+    solver = FACADES[kind][0](A)
+    _solve(solver, kind, Y)
+    old = weakref.ref(_kept_tensor(solver))
+    col = np.random.RandomState(1).randn(A.shape[0]).astype(np.float32)
+    col /= np.linalg.norm(col)
+    solver.update_column(7, col)
+    assert old() is None and solver._kept._entry == {}
+    got, call = _traced(lambda: _solve(solver, kind, Y))
+    assert _names(call, "solvers.capture")
+    A2 = A.copy()
+    A2[:, 7] = col
+    with monkeypatch.context() as mp:
+        _rule_says(mp, lambda *a, **k: False)
+        want = _solve(FACADES[kind][0](A2), kind, Y)
+    # the updated Gram's row and column come from one product, so compare
+    # with the route's own tolerance of a rebuilt Gram
+    assert torch.equal(got[1], want[1])
+    assert torch.allclose(got[0], want[0], atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["homotopy_batch", "homotopy_core", "omp"])
+def test_the_high_resolve_captures_anew_and_keeps_nothing(
+        kind, stand_in_graphs, monkeypatch):
+    """A certified façade whose certificate is forced to miss: the
+    one-pass solve reuses its kept graphs from the second call on, and
+    the "high" re-solve captures its loops anew in every call and leaves
+    the kept entry as the one-pass solve's."""
+    import sparse_solvers_tpu_torch.api as api
+    A, Y = _signals(kind, 8)
+    factory = {"homotopy_batch": lambda: pt.Homotopy(A, k_max=48,
+                                                     **TORCH_ROUTE),
+               "homotopy_core": lambda: pt.Homotopy(A, **TORCH_ROUTE),
+               "omp": lambda: pt.Omp(A, **TORCH_ROUTE)}[kind]
+    # the OMP driver's certificate is its own
+    where, seam = ((omp_batch, "l2_certificate") if kind == "omp"
+                   else (api, "_certified_error"))
+    real = getattr(where, seam)
+
+    def missing(A, x, Y, *psum):
+        err = real(A, x, Y, *psum).clone()
+        err[0] = 1e3
+        return err
+    monkeypatch.setattr(where, seam, missing)
+    solver = factory()
+    calls = []
+    for _ in range(2):
+        calls.append(_traced(lambda: _solve(solver, kind, Y))[1])
+    key = solver._kept._key
+    assert "default" in key and "high" not in key
+    for i, call in enumerate(calls):
+        [resolve] = _names(call, "api.resolve")
+        inside = {resolve.span_id}
+        for span in sorted(call.spans, key=lambda span: span.span_id):
+            if span.parent_id in inside:
+                inside.add(span.span_id)
+        captures = _names(call, "solvers.capture")
+        resolved = [c for c in captures if c.span_id in inside]
+        assert resolved
+        if i == 0:
+            assert len(captures) > len(resolved)
+            assert "solvers.graph_reuses" not in call.counters
+        else:
+            assert len(captures) == len(resolved)
+            assert call.counters["solvers.graph_reuses"] > 0
+
+
+@pytest.mark.parametrize("kind", sorted(FACADES))
+def test_a_deleted_facade_frees_its_kept_graphs(kind, stand_in_graphs):
+    """The kept entry belongs to the façade: deleting the façade frees
+    every kept state tensor and the operands the graphs read."""
+    A, Y = _signals(kind, 9)
+    solver = FACADES[kind][0](A)
+    _solve(solver, kind, Y)
+    _solve(solver, kind, Y)
+    state = weakref.ref(_kept_tensor(solver))
+    operands = weakref.ref(next(
+        t for t in solver._kept._entry["operands"]
+        if isinstance(t, torch.Tensor)))
+    del solver
+    assert state() is None and operands() is None
+
+
+@pytest.mark.parametrize("kind", ["homotopy_batch", "omp"])
+def test_the_eager_route_keeps_no_graph(kind):
+    """On the CPU the loops run eagerly: a façade keeps no trip, and its
+    calls count neither a capture nor a reuse."""
+    A, Y = _signals(kind, 10)
+    solver = FACADES[kind][0](A)
+    for _ in range(2):
+        _, call = _traced(lambda: _solve(solver, kind, Y))
+        assert not _names(call, "solvers.capture")
+        assert "solvers.graph_reuses" not in call.counters
+    assert not [v for v in solver._kept._entry.values()
+                if isinstance(v, loops.Slot) and v.trip is not None]
+
+
+def test_a_kept_trip_refuses_a_state_of_other_shapes():
+    trip = loops._TripGraph.__new__(loops._TripGraph)
+    trip.state = (torch.zeros(3), torch.zeros(2, 4))
+    got = trip.load((torch.ones(3), torch.ones(2, 4)))
+    assert got is trip.state and torch.equal(got[1], torch.ones(2, 4))
+    for bad in [(torch.ones(3), torch.ones(2, 1)),
+                (torch.ones(3, dtype=torch.float64), torch.ones(2, 4)),
+                (torch.ones(3),)]:
+        with pytest.raises(ValueError, match="shapes and dtypes"):
+            trip.load(bad)
