@@ -1599,7 +1599,8 @@ class Cosamp(_Solver):
             return self._mesh_batch(Y, lambda Yl: _sh._cosamp_placed(
                 self._mesh, A_local, Yl, self._k, tolerance, max_iterations,
                 self._precision, self._m, AT=AT))
-        with _blas.precision_scope(self._precision):
+        with _profiling.span("api.path"), _blas.precision_scope(
+                self._precision):
             return _cosamp.solve_cosamp(self._A, Y, self._k, tolerance,
                                         max_iterations, AT=self._AT())
 
@@ -1607,21 +1608,26 @@ class Cosamp(_Solver):
               max_iterations: int = 20):
         """Recover a k-sparse x with y ≈ Ax; returns (x, OmpReport) with x
         an (n,) tensor on the solver's device."""
-        y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
-                             device=self._device)
-        x, rep = _first_lane(self._run(y[None], self._tol(tolerance),
-                                       max_iterations))
-        return x, OmpReport(iter=int(rep.iter),
-                            solution_error=float(rep.solution_error))
+        with _profiling.span("api.solve", precision=self._precision):
+            _profiling.count("api.lanes")
+            y = ndview.as_vector(b, dtype=self.dtype, size=self._m,
+                                 device=self._device)
+            x, rep = _first_lane(self._run(y[None], self._tol(tolerance),
+                                           max_iterations))
+            return x, OmpReport(
+                iter=_certify.read(rep.iter, int),
+                solution_error=_certify.read(rep.solution_error, float))
 
     def solve_batch(self, B, tolerance: float | None = None,
                     max_iterations: int = 20):
         """Batched solve over signals B of shape (batch, m); returns (X
         (batch, n), OmpReportArrays of per-lane tensors) on the solver's
         device."""
-        Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
-                                   device=self._device)
-        return self._run(Y, self._tol(tolerance), max_iterations)
+        with _profiling.span("api.solve_batch", precision=self._precision):
+            Y = ndview.as_signal_batch(B, dtype=self.dtype, size=self._m,
+                                       device=self._device)
+            _profiling.count("api.lanes", Y.shape[0])
+            return self._run(Y, self._tol(tolerance), max_iterations)
 
     def solve_on_device(self, y: torch.Tensor, tolerance,
                         max_iterations: int = 20):

@@ -46,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import blas, collectives
+from ..utils import profiling
 from . import loops
 from .loops import _select
 from .omp import OmpReportArrays
@@ -135,6 +136,7 @@ def solve_cosamp(A: torch.Tensor, Y: torch.Tensor, k_sparsity: int,
         # sentinel slots
         Bt = AT.index_select(0, omega.clamp(max=n - 1).reshape(-1).long())
         Bt = Bt.view(b, S, m_local).masked_fill_(~valid.unsqueeze(-1), 0)
+        profiling.count("cosamp.union_bytes", Bt.numel() * Bt.element_size())
         G = psum(blas.xgemm(Bt, Bt, trans_b=True))      # (b, S, S)
         # sentinel diagonal → 1: exact (zero rows/cols elsewhere, rhs 0)
         G.diagonal(dim1=-2, dim2=-1).add_((~valid).to(dtype))
