@@ -369,6 +369,17 @@ class _GramSolver(_Solver):
             self._AT_cache[key] = _homotopy_batch.transposed_copy(self._A)
         return self._AT_cache[key]
 
+    def _lane_operator(self, A, G, lanes: int) -> DenseOperator:
+        """The per-lane cores' operator. In the "default" scope a float32
+        A carries the façade's bf16 transposed copy (``_transposed``), so
+        that no product rounds A again; the count ``api.bf16_copy_lanes``
+        says which lanes' operators carry it."""
+        AT = (self._transposed() if _blas.current_precision() == "default"
+              and A.dtype == torch.float32 else None)
+        _profiling.count("api.bf16_copy_lanes", lanes if AT is not None
+                         else 0)
+        return DenseOperator(A, G, AT)
+
     def update_column(self, j: int, col) -> None:
         """Replace column j of the sensing matrix on the solver's device
         (gallery churn) and rewrite the cached Gram's row and column from
@@ -740,9 +751,15 @@ class Homotopy(_GramSolver):
 
         def path(A, G, Y, tol):
             with _blas.precision_scope(path_precision):
-                # without a Gram the driver runs gram-free
-                AT = (self._transposed() if batch_native and G is None
-                      else None)
+                if batch_native:
+                    # without a Gram the driver runs gram-free
+                    AT = self._transposed() if G is None else None
+                else:
+                    # a recorded path, whose iterates are the product,
+                    # keeps reading A
+                    op = (DenseOperator(A, G) if record_path
+                          else self._lane_operator(A, G, Y.shape[0]))
+                    AT = op.AT
                 keep = self._kept.entry((
                     batch_native, Y.shape[0], max_iterations, k_max,
                     _f32_key(tol, A.dtype), path_precision, self._mode,
@@ -752,8 +769,8 @@ class Homotopy(_GramSolver):
                         A, G, Y, tol, max_iterations, k_max, dense=dense,
                         record_path=record_path, AT=AT, keep=keep)
                 return _homotopy.solve_homotopy_core(
-                    DenseOperator(A, G), self._n, Y, tol, max_iterations,
-                    k_max, mode=self._mode, sparse_matvec=sparse,
+                    op, self._n, Y, tol, max_iterations, k_max,
+                    mode=self._mode, sparse_matvec=sparse,
                     record_path=record_path, compact=not dense, keep=keep)
 
         def run(A, G, y, tol):
@@ -1080,8 +1097,9 @@ class Omp(_GramSolver):
                 # G rides along for the per-pick inserts whenever it
                 # exists; corr selects only the correlation update
                 X, rep = _omp.solve_omp_core(
-                    DenseOperator(A, G), self._n, Y, tol, max_iterations,
-                    k_max, mode=self._mode, corr=corr, picks=self._picks)
+                    self._lane_operator(A, G, Y.shape[0]), self._n, Y, tol,
+                    max_iterations, k_max, mode=self._mode, corr=corr,
+                    picks=self._picks)
             if certified:
                 with _profiling.span("api.certify"):
                     rep = rep._replace(solution_error=_certified_l2_error(

@@ -36,6 +36,8 @@ import threading
 
 import torch
 
+from . import dispatch
+
 _PRECISIONS = ("highest", "high", "default")
 _TLS = threading.local()
 
@@ -84,6 +86,20 @@ def scope_operand(t: torch.Tensor) -> torch.Tensor:
     caller that already holds the bf16 copy of an operand widens that
     copy instead, which gives the same values."""
     return _operands(t)[0]
+
+
+def bf16_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (p, q) @ b (q, r) for operands already held in bf16, with fp32
+    accumulation and an fp32 result: the "default" scope's product
+    without rounding either operand again. The tensor's device decides,
+    as in ``ops/dispatch.py``: on the card one cuBLAS product that reads
+    the bf16 operands (``mm`` with ``out_dtype``, which the card's torch
+    registers and the CPU's does not); on the CPU the twin widens both
+    (exactly) and multiplies in fp32, the values ``xgemm`` gives up to the
+    order of the fp32 sums."""
+    if dispatch.use_cuda_kernel(a, b):
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
 
 
 def xgemm(A: torch.Tensor, B: torch.Tensor, *, trans_a: bool = False,

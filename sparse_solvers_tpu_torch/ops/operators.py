@@ -32,9 +32,16 @@ from . import blas, collectives
 class DenseOperator(NamedTuple):
     """Plain dense sensing matrix A (m, n) on one device; ``G`` optionally
     carries the precomputed Gram matrix AᵀA (n, n), which turns every
-    insert and the sparse q = AᵀA·d into O(n·k) gathers."""
+    insert and the sparse q = AᵀA·d into O(n·k) gathers.
+
+    ``AT`` optionally carries the bf16 transposed copy of A (n + 1, m),
+    zero in row n (``homotopy_batch.transposed_copy``). In the "default"
+    scope every product over A reads it: the bf16 values ``blas._operands``
+    would round A to, with fp32 accumulation, so A is never rounded again
+    per product. In any other scope, or without it, A is read."""
     A: torch.Tensor
     G: torch.Tensor | None = None
+    AT: torch.Tensor | None = None
 
     @property
     def shape(self):
@@ -48,8 +55,17 @@ class DenseOperator(NamedTuple):
     def has_gram(self):
         return self.G is not None
 
+    def _copy(self) -> torch.Tensor | None:
+        """The bf16 copy where the scope reads it ("default"), else None."""
+        if self.AT is None or blas.current_precision() != "default":
+            return None
+        return self.AT
+
     def matvec(self, x):
         """A x per lane: x (b, n) → (b, m)."""
+        AT = self._copy()
+        if AT is not None:
+            return blas.bf16_mm(x.to(torch.bfloat16), AT[:self.A.shape[1]])
         return blas.xgemm(x, self.A, trans_b=True)
 
     def _gather_cols(self, M, indices):
@@ -65,14 +81,26 @@ class DenseOperator(NamedTuple):
         A. ``vals`` (slot-ordered x[indices]) skips the dense gather."""
         if vals is None:
             vals = active_set.take(x, indices, self.A.shape[1])
+        AT = self._copy()
+        if AT is not None:
+            # the copy's rows, row n zero for sentinel slots: (b, K, m)
+            return blas.xgemv(AT[indices.long()].float(), vals, trans=True)
         return blas.xgemv(self._gather_cols(self.A, indices), vals)
 
     def rmatvec(self, u):
         """Aᵀ u per lane: u (b, m) → (b, n)."""
+        AT = self._copy()
+        if AT is not None:
+            return blas.bf16_mm(u.to(torch.bfloat16),
+                                AT[:self.A.shape[1]].mT)
         return blas.xgemm(u, self.A)
 
     def column(self, j):
-        """A e_j per lane: j (b,) → (b, m)."""
+        """A e_j per lane: j (b,) → (b, m); from the copy, the bf16 values
+        every product in the scope multiplies it as."""
+        AT = self._copy()
+        if AT is not None:
+            return AT[j.long()].float()
         return self.A[:, j.long()].T
 
     def gram_column(self, j):

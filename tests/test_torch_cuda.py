@@ -496,6 +496,54 @@ def test_core_on_card_matches_cpu_twins(dev, dtype, atol):
         np.testing.assert_allclose(a, b, atol=atol)
 
 
+@pytest.mark.parametrize("b", [1, 8])
+def test_bf16_mm_matches_twin(dev, b):
+    """``blas.bf16_mm`` on the card (cuBLAS: bf16 inputs, fp32 sums and
+    result) against its CPU twin at the gram-free shape, both ways over a
+    transposed copy (n + 1, m): Aᵀu from (b, m), A x from (b, n). Within
+    1e-5 of Σ|a||u|: fp32 sums of up to 65536 exact products in another
+    order (an H100 reads under 5e-7 of it)."""
+    from sparse_solvers_tpu_torch.ops import blas
+    m, n = 2048, 65536
+    g = torch.Generator().manual_seed(b)
+    AT = torch.randn(n + 1, m, generator=g).to(torch.bfloat16)
+    AT[n] = 0
+    ATd = AT.to(dev)
+    for vec, w, wd in (
+            (torch.randn(b, m, generator=g), AT[:n].mT, ATd[:n].mT),
+            (torch.randn(b, n, generator=g), AT[:n], ATd[:n])):
+        v = vec.to(torch.bfloat16)
+        want = blas.bf16_mm(v, w)
+        got = blas.bf16_mm(v.to(dev), wd)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        scale = blas.bf16_mm(v.abs(), w.abs())
+        assert bool(((got.cpu() - want).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("family", ["homotopy", "omp"])
+def test_certified_solve_with_the_bf16_copy_matches_cpu(dev, family):
+    """A certified gram-free ``solve`` on the per-lane core, whose
+    operator reads the façade's bf16 copy on the card (kept graphs
+    included: three solves) as on the CPU: iterations exact, X within
+    1e-4 (bf16 inputs, fp32 sums in another order), every certificate
+    within the tolerance."""
+    from sparse_solvers_tpu_torch import Homotopy, Omp
+    A, Y, _ = compressive_problem(128, 1024, 6, 3, seed=8)
+    cls = Homotopy if family == "homotopy" else Omp
+    out = {}
+    for where in (dev, "cpu"):
+        solver = cls(A, gram=False, engine="jax", device=where)
+        runs = [solver.solve(Y[i], 1e-2, 24) for i in range(3)]
+        assert solver._AT_cache[True].dtype == torch.bfloat16
+        out[str(where)] = ([x.cpu().numpy() for x, _ in runs],
+                           [(r.iter, r.solution_error) for _, r in runs])
+    (xg, rg), (xc, rc) = out[str(dev)], out["cpu"]
+    assert [r[0] for r in rg] == [r[0] for r in rc]
+    assert all(r[1] <= 1e-2 for r in rg + rc)
+    for a, c in zip(xg, xc):
+        np.testing.assert_allclose(a, c, atol=1e-4)
+
+
 @pytest.mark.parametrize("family,picks", [("homotopy", 1), ("omp", 1),
                                           ("omp", 4)])
 def test_gram_free_drivers_on_card_match_cpu_twins(dev, family, picks):

@@ -312,3 +312,59 @@ def test_update_column_drops_the_transposed_copy():
                        **TORCH_ROUTE).solve_batch(Y2, 1e-2, 16)
         assert torch.equal(X, Xb) and torch.equal(rep.iter, repb.iter)
         assert int(np.argmax(np.abs(X[0].numpy()))) == 11
+
+
+@pytest.mark.parametrize("family", ["homotopy", "omp"])
+def test_per_lane_solve_reads_the_kept_bf16_copy(monkeypatch, family):
+    """A certified gram-free ``solve`` takes the per-lane core, whose
+    operator carries the façade's bf16 transposed copy at "default": a
+    second solve rounds no operand of A's size (``blas._operands``), where
+    an operator without the copy rounds A for each product; its answer and
+    iterations match that operator's; ``api.bf16_copy_lanes`` counts its
+    one lane under the profiler, and a forced "high" re-solve none."""
+    from sparse_solvers_tpu_torch import certify
+    from sparse_solvers_tpu_torch.ops.operators import DenseOperator
+    from sparse_solvers_tpu_torch.utils import profiling
+    A, Y, _ = compressive_problem(64, 256, 4, 2, seed=5)
+    m, n = A.shape
+    cls = pt.Homotopy if family == "homotopy" else pt.Omp
+    real = pblas._operands
+    rounded = []
+
+    def recording(*tensors):
+        if pblas.current_precision() == "default":
+            rounded.extend(t.numel() for t in tensors
+                           if t.dtype == torch.float32)
+        return real(*tensors)
+
+    def second_solve(solver):
+        solver.solve(Y[0], 1e-2, 20)
+        rounded.clear()
+        with monkeypatch.context() as patch:
+            patch.setattr(pblas, "_operands", recording)
+            x, rep = solver.solve(Y[1], 1e-2, 20)
+        return x, rep, max(rounded)
+
+    solver = cls(A, gram=False, **TORCH_ROUTE)
+    assert "driver" not in solver.explain()["formulation"]
+    x, rep, most = second_solve(solver)
+    assert most < m * n
+    assert solver._AT_cache[True].dtype == torch.bfloat16
+    with monkeypatch.context() as patch:
+        patch.setattr(papi._GramSolver, "_lane_operator",
+                      lambda self, A, G, lanes: DenseOperator(A, G))
+        x0, rep0, most0 = second_solve(cls(A, gram=False, **TORCH_ROUTE))
+    assert most0 >= m * n
+    assert rep.iter == rep0.iter
+    np.testing.assert_allclose(x.numpy(), x0.numpy(), atol=1e-5)
+
+    with profiling.trace():
+        solver.solve(Y[1], 1e-2, 20)
+    assert profiling.calls()[-1].counters == {
+        "api.lanes": 1, "api.bf16_copy_lanes": 1}
+    with monkeypatch.context() as patch:
+        patch.setattr(certify, "failed_lanes", lambda *args: True)
+        with profiling.trace():
+            solver.solve(Y[1], 1e-2, 20)
+    assert profiling.calls()[-1].counters == {
+        "api.lanes": 1, "api.bf16_copy_lanes": 1, "api.resolved_lanes": 1}

@@ -195,3 +195,78 @@ def test_frozen_lanes_keep_their_state_exactly():
             np.testing.assert_allclose(X[lane].numpy(), x1[0].numpy(),
                                        atol=1e-6)
     assert len(set(rep.iter.tolist())) > 1
+
+
+OPERATOR_CALLS = {
+    "matvec": lambda op, c: op.matvec(c["x"]),
+    "rmatvec": lambda op, c: op.rmatvec(c["u"]),
+    "column": lambda op, c: op.column(c["j"]),
+    "matvec_sparse": lambda op, c: op.matvec_sparse(c["xs"], c["idx"]),
+    "gram_column": lambda op, c: op.gram_column(c["j"]),
+    "gram_gathered": lambda op, c: op.gram_gathered(c["j"], c["idx"]),
+}
+
+
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("with_g", [False, True], ids=["no_gram", "gram"])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("method", sorted(OPERATOR_CALLS))
+def test_operator_bf16_copy_matches_rounded_a(method, b, with_g):
+    """``DenseOperator`` carrying the bf16 transposed copy of A against
+    the operator without it. In the "default" scope every output lies
+    within fp32 summation order of the copy-free one: |Δ| ≤ max(m, n)·eps
+    of Σ|a||u| over the bf16-rounded operands (a column is exactly the
+    bf16 values every product rounds it to). In "high" and "highest" the
+    copy is not read and the outputs are bit-identical."""
+    from sparse_solvers_tpu_torch.solvers.homotopy_batch import (
+        transposed_copy)
+    m, n, K = 40, 96, 7
+    rng = np.random.RandomState(10 * b + with_g)
+    A = torch.from_numpy(rng.randn(m, n).astype(np.float32))
+    with blas.precision_scope("highest"):
+        G = blas.xgemm(A, A, trans_a=True) if with_g else None
+    with blas.precision_scope("default"):
+        AT = transposed_copy(A)
+    idx = np.stack([rng.permutation(n)[:K] for _ in range(b)])
+    idx[:, -2:] = n                       # sentinel slots gather zeros
+    idx = torch.from_numpy(idx.astype(np.int32))
+    xs = torch.zeros(b, n)
+    for lane in range(b):
+        xs[lane, idx[lane, :-2].long()] = torch.from_numpy(
+            rng.uniform(-1, 1, K - 2).astype(np.float32))
+    case = {"x": torch.from_numpy(rng.randn(b, n).astype(np.float32)),
+            "u": torch.from_numpy(rng.randn(b, m).astype(np.float32)),
+            "j": torch.from_numpy(rng.choice(n, b).astype(np.int32)),
+            "xs": xs, "idx": idx}
+    call = OPERATOR_CALLS[method]
+    plain, copied = DenseOperator(A, G), DenseOperator(A, G, AT)
+
+    with blas.precision_scope("default"):
+        want = _outputs(call(plain, case))
+        got = _outputs(call(copied, case))
+        if method == "column":
+            want = (blas.scope_operand(want[0]),)
+    # Σ|a||u| over the rounded operands, in float64
+    r16 = lambda t: (t.to(torch.bfloat16).double().abs()
+                     if t.is_floating_point() else t)
+    A16 = r16(A)
+    scale_op = DenseOperator(A16, A16.T @ A16 if with_g else None)
+    with blas.precision_scope("highest"):
+        scale = _outputs(call(scale_op, {k: r16(v) for k, v in case.items()}))
+    eps = torch.finfo(torch.float32).eps
+    for w, g, s in zip(want, got, scale):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if method == "column":
+            assert torch.equal(g, w)
+        else:
+            assert ((g.double() - w.double()).abs()
+                    <= max(m, n) * eps * s).all()
+
+    for precision in ("high", "highest"):
+        with blas.precision_scope(precision):
+            for w, g in zip(_outputs(call(plain, case)),
+                            _outputs(call(copied, case))):
+                assert torch.equal(g, w)

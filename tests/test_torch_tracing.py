@@ -141,7 +141,8 @@ def test_solve_records_the_per_lane_core():
     assert [s.parent_id for s in syncs if s.attrs["what"] == "live"][0] == (
         path.span_id)
     assert len(syncs) == it + 1 + 2
-    assert call.counters == {"api.lanes": 1}
+    # the per-lane core's operator carries the bf16 copy at "default"
+    assert call.counters == {"api.lanes": 1, "api.bf16_copy_lanes": 1}
 
 
 @pytest.mark.parametrize("entry,lanes", [("solve_batch", 8), ("solve", 1)])

@@ -133,7 +133,8 @@ def test_solve_records_the_per_lane_core(problem):
         "live"] * (len(trips) + 1) + ["read", "read"]
     assert _parents(call, "solvers.sync")[1:len(trips) + 1] == [
         "solvers.iter"] * len(trips)
-    assert call.counters == {"api.lanes": 1}
+    # the per-lane core's operator carries the bf16 copy at "default"
+    assert call.counters == {"api.lanes": 1, "api.bf16_copy_lanes": 1}
 
 
 @pytest.mark.parametrize("entry,lanes", [("solve_batch", 8), ("solve", 1)])
@@ -160,8 +161,11 @@ def test_a_missed_certificate_records_the_resolve(problem, entry, lanes,
     # its own residual
     assert len(_named(call, "api.certify")) == (
         2 if entry == "solve_batch" else 1)
+    # the core's first pass reads the bf16 copy, its "high" re-solve
+    # does not; the driver takes no per-lane operator
+    copy_lanes = {"api.bf16_copy_lanes": 1} if entry == "solve" else {}
     assert call.counters == {"api.lanes": lanes,
-                             "api.resolved_lanes": lanes}
+                             "api.resolved_lanes": lanes, **copy_lanes}
     whats = collections.Counter(s.attrs["what"]
                                 for s in _named(call, "solvers.sync"))
     # the first solve's two reads, and the re-solve's on the single route
