@@ -7,6 +7,10 @@ The batch drivers and the per-lane Homotopy core call ``run``; the
 per-lane OMP core, IRLS, CG-IRLS and CoSaMP call ``synced_while`` and stay
 eager; the per-lane cores step in the carry form ``lanes`` builds.
 
+A loop given ``counts`` adds them to its call's counters on every trip
+it makes, eager, captured or replayed: a replay runs none of the body's
+Python, so a count the body made would record only at the capture.
+
 A caller that solves again with the same shapes keeps its loops' graphs
 across calls (``Kept``, which the façades own): a loop given a ``Slot``
 that holds a captured trip writes its new state into the tensors that
@@ -44,7 +48,14 @@ def lanes(body, cond, state):
     return trip, lambda carry: carry[1], (state, cond(state))
 
 
-def synced_while(body, live_fn, state, sync_axes=None):
+def _count_trip(counts) -> None:
+    """Add a trip's ``counts`` ({counter: n} or None) to the open call's
+    counters (``utils/profiling``: only while a profiler records)."""
+    for name, n in (counts or {}).items():
+        profiling.count(name, n)
+
+
+def synced_while(body, live_fn, state, sync_axes=None, counts=None):
     """The solvers' host loop: ``state = body(state)`` while any lane of
     ``live_fn(state)`` is live (homotopy_batch.py:350-376 of the JAX
     package). ``sync_axes=None``: each rank reads its own lanes (the ranks
@@ -54,11 +65,13 @@ def synced_while(body, live_fn, state, sync_axes=None):
     pass through the extra trips unchanged. Each trip is a
     ``solvers.iter`` span: the body, then the liveness test that decides
     the next trip, whose read of the flag is a ``solvers.sync`` span; the
-    first test lies outside them (``utils/profiling``)."""
+    first test lies outside them (``utils/profiling``). ``counts``
+    ({counter: n}) is added to the call's counters each trip."""
     go = _any_live(live_fn, state, sync_axes)
     while go:
         with profiling.span("solvers.iter"):
             state = body(state)
+            _count_trip(counts)
             go = _any_live(live_fn, state, sync_axes)
     return state
 
@@ -94,16 +107,18 @@ def graph_route(state, sharded: bool = False,
 
 
 def run(body, live_fn, state, *, sharded: bool = False,
-        host_reads: bool = False, sync_axes=None, slot=None):
+        host_reads: bool = False, sync_axes=None, slot=None, counts=None):
     """``body`` over ``state`` while any lane of ``live_fn`` lives, on the
     loop ``graph_route`` picks from what the caller observes: a collective
     in the loop (``sharded``, or a ``sync_axes`` group, which then syncs
     the trips) and host reads in the body. ``slot`` (a ``Slot``) keeps the
-    graph route's trip for the next run of the same loop."""
+    graph route's trip for the next run of the same loop. ``counts``
+    ({counter: n}, constants of the caller) is added to the call's
+    counters on every trip, whichever loop runs it."""
     if graph_route(state, sharded=sharded or sync_axes is not None,
                    host_reads=host_reads):
-        return graphed_while(body, live_fn, state, slot)
-    return synced_while(body, live_fn, state, sync_axes)
+        return graphed_while(body, live_fn, state, slot, counts)
+    return synced_while(body, live_fn, state, sync_axes, counts)
 
 
 class Slot:
@@ -248,7 +263,7 @@ def _captured_trip(body, live_fn, state) -> torch.Tensor:
     return live_fn(state).any()
 
 
-def graphed_while(body, live_fn, state, slot=None):
+def graphed_while(body, live_fn, state, slot=None, counts=None):
     """``synced_while`` (unsharded) with each trip replayed as one CUDA
     graph (``graph_route`` says where). A loop without a kept trip runs
     its first trip eagerly, which also warms every lazy set-up its kernels
@@ -260,9 +275,9 @@ def graphed_while(body, live_fn, state, slot=None):
     replays it from the first trip on (counted once in
     ``solvers.graph_reuses``), as a capture does releasing the cuBLAS
     workspaces, which no replay uses. Each replay is counted in
-    ``solvers.graph_replays``. Spans, syncs, values and the hand kernels'
-    launch counts are the eager loop's. Returns the state's tensors: a
-    kept trip's, which its next run overwrites."""
+    ``solvers.graph_replays``. Spans, syncs, values, ``counts`` and the
+    hand kernels' launch counts are the eager loop's. Returns the state's
+    tensors: a kept trip's, which its next run overwrites."""
     trip = None if slot is None else slot.trip
     if trip is not None:
         state = trip.load(state)
@@ -271,6 +286,7 @@ def graphed_while(body, live_fn, state, slot=None):
     if trip is None:
         with profiling.span("solvers.iter"):
             live = _captured_trip(body, live_fn, state)
+            _count_trip(counts)
             trip = _TripGraph(body, live_fn, state)
             with profiling.span("solvers.sync", what="live"):
                 go = bool(live)
@@ -283,4 +299,5 @@ def graphed_while(body, live_fn, state, slot=None):
     while go:
         with profiling.span("solvers.iter"):
             go = trip.replay()
+            _count_trip(counts)
     return state

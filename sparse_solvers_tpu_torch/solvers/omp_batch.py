@@ -20,7 +20,9 @@ smaller slot buffers and zero-pads the state upward (``_embed_omp``).
 PyTorch idiom against the JAX form:
   * the loop is ``loops.run``'s, as the Homotopy driver's: one device
     sync a round, and each tier's rounds after its first replayed as one
-    CUDA graph on a card and unsharded;
+    CUDA graph on a card and unsharded; under a profiler every round,
+    replays included, counts one ``omp.passes`` and ``picks``
+    ``omp.sub_inserts`` (``utils/profiling``);
   * K4 updates the state's inverse in place, as the Pallas call aliases
     it, and commits it ungated as the JAX driver does (inert and
     degenerate lanes are not written by the kernel; a blown lane breaks
@@ -280,6 +282,9 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
             done=s.done | (stepped & (rss1 >= s.rss)))
 
     tiers = _plan_tiers(k_max, max_iterations, ladder)
+    # what every trip issues, whether eager, captured or replayed: one
+    # correlation pass over A and ``picks`` guarded K4 sub-inserts
+    trip_counts = {"omp.passes": 1, "omp.sub_inserts": picks}
     state = None
     for t, Kt in enumerate(tiers):
         # non-final tiers stop before any lane could need slot Kt
@@ -308,7 +313,8 @@ def solve_omp_batch(A: torch.Tensor, G: torch.Tensor | None,
             state = loops.run(step, live_fn, state, sharded=axis is not None,
                               sync_axes=sync_axes,
                               slot=kept.setdefault(("tier", Kt, cap),
-                                                   loops.Slot()))
+                                                   loops.Slot()),
+                              counts=trip_counts)
 
     X = active_set.scatter(state.coef, state.indices, n)
     # the certificate: ‖y − Ax‖₂ per lane from the returned solution (a

@@ -142,14 +142,14 @@ def instrument() -> None:
     every CG matvec records the collectives it issued."""
     real_while, real_cg = loops.synced_while, CG._cg_solve
 
-    def synced_while(body, live_fn, state, sync_axes=None):
+    def synced_while(body, live_fn, state, sync_axes=None, counts=None):
         def counted(s):
             before = dict(collectives.counts)
             s = body(s)
             _RECORD["trips"].append(_delta(before))
             return s
         before, trips0 = dict(collectives.counts), len(_RECORD["trips"])
-        state = real_while(counted, live_fn, state, sync_axes)
+        state = real_while(counted, live_fn, state, sync_axes, counts)
         total = _delta(before)
         trips = _RECORD["trips"][trips0:]
         # (trips, the loop's own all-reduces: the synced continue flags)

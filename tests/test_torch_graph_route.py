@@ -177,6 +177,9 @@ def test_the_omp_driver_asks_the_rule_with_what_it_observes(case,
     assert asked == [(sharded, False)] * 2
     trips = [s for s in call.spans if s.name == "solvers.iter"]
     assert int(rep.iter.max()) > 4
+    # every trip counts its pass and its one insert, on either loop
+    assert call.counters["omp.passes"] == len(trips)
+    assert call.counters["omp.sub_inserts"] == len(trips)
     if sharded:
         assert "solvers.graph_replays" not in call.counters
     else:
@@ -265,6 +268,15 @@ def test_stand_in_graphs_replay_the_eager_loop_bit_for_bit(
     assert captures == loops
     assert gcall.counters["solvers.graph_replays"] == trips - loops
     assert "solvers.graph_replays" not in ecall.counters
+    # every other counter (the OMP driver's passes and sub-inserts) is the
+    # eager loop's: a replay counts what the trip issued
+    own = lambda c: {k: v for k, v in c.counters.items()
+                     if not k.startswith("solvers.graph")}
+    assert own(gcall) == own(ecall)
+    if case.startswith("omp"):
+        picks = 4 if case == "omp_gomp" else 1
+        assert own(ecall) == {"omp.passes": trips,
+                              "omp.sub_inserts": picks * trips}
 
 
 def test_write_back_refuses_what_it_cannot_write_back_whole():
@@ -424,6 +436,69 @@ def test_kept_graphs_replay_a_sequence_of_calls_as_the_eager_loop(
         reused += len(old)
     # the last call repeats the first's signals: every loop it runs is kept
     assert not new and reused
+
+
+@pytest.mark.parametrize("route", ["eager", "graph"])
+@pytest.mark.parametrize("kind", ["omp", "gomp"])
+def test_omp_counters_record_on_every_trip(kind, route, monkeypatch):
+    """``omp.passes`` counts 1 and ``omp.sub_inserts`` picks on every trip
+    of the OMP driver: on the eager loop, and on the graph route, whose
+    first call runs an eager trip and captures, and whose later calls
+    replay kept trips from the first on and run none of the body's
+    Python. A Homotopy call counts neither."""
+    if route == "graph":
+        _rule_says(monkeypatch, lambda *a, **k: True)
+        monkeypatch.setattr(loops, "_capture", _eager_capture)
+    picks = 4 if kind == "gomp" else 1
+    A = _signals(kind, 0)[0]
+    solver = FACADES[kind][0](A)
+    for i, seed in enumerate((0, 1, 0)):
+        _, call = _traced(lambda: _solve(solver, kind,
+                                         _signals(kind, seed)[1]))
+        trips = len(_names(call, "solvers.iter"))
+        assert trips > 0
+        assert call.counters["omp.passes"] == trips
+        assert call.counters["omp.sub_inserts"] == picks * trips
+        if route == "graph" and i:
+            # every trip but a new tier's first was a replay, of a trip
+            # kept from an earlier call or captured in this one
+            captures = len(_names(call, "solvers.capture"))
+            assert call.counters["solvers.graph_replays"] == trips - captures
+            assert call.counters["solvers.graph_reuses"] > 0
+            # the last call repeats the first's signals: replays alone
+            assert i == 1 or not captures
+    hom = FACADES["homotopy_batch"]
+    _, call = _traced(lambda: _solve(hom[0](A), "homotopy_batch",
+                                     _signals("homotopy_batch", 0)[1]))
+    assert _names(call, "solvers.iter")
+    assert not {"omp.passes", "omp.sub_inserts"} & set(call.counters)
+
+
+@pytest.mark.parametrize("loop", ["synced", "graphed", "kept"])
+def test_a_loop_adds_its_counts_on_every_trip(loop, monkeypatch):
+    """``loops.run``'s ``counts`` on a toy loop of three trips: each trip
+    adds them, whichever loop runs it, a kept trip's replays included; a
+    loop given none counts nothing."""
+    if loop != "synced":
+        _rule_says(monkeypatch, lambda *a, **k: True)
+        monkeypatch.setattr(loops, "_capture", _eager_capture)
+    slot = loops.Slot()
+    body = lambda s: (s[0] + 1,)
+    live = lambda s: s[0] < 3
+    for _ in range(2 if loop == "kept" else 1):
+        _, call = _traced(lambda: _run_toy(body, live, slot,
+                                           {"a": 1, "b": 5}))
+    assert call.counters["a"] == 3 and call.counters["b"] == 15
+    if loop == "kept":
+        assert call.counters["solvers.graph_reuses"] == 1
+    _, call = _traced(lambda: _run_toy(body, live, loops.Slot(), None))
+    assert not {"a", "b"} & set(call.counters)
+
+
+def _run_toy(body, live, slot, counts):
+    with profiling.span("call"):
+        return loops.run(body, live, (torch.zeros(2),), slot=slot,
+                         counts=counts)
 
 
 @pytest.mark.parametrize("kind", sorted(FACADES))

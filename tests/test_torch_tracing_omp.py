@@ -2,8 +2,9 @@
 and nesting ``Homotopy`` records (``tests/test_torch_tracing.py``): the
 facade's root ⊃ ``api.path``, ``api.certify`` and ``api.resolve``, the
 counters ``api.lanes`` and ``api.resolved_lanes``, one ``solvers.tier``
-per capacity tier of the slot-space driver; nothing without a profiler,
-and the same results with one.
+per capacity tier of the slot-space driver, whose trips count
+``omp.passes`` and ``omp.sub_inserts``; nothing without a profiler, and
+the same results with one.
 """
 
 import collections
@@ -109,7 +110,10 @@ def test_solve_batch_span_tree_and_counters(problem, precision, reads):
         ("solvers.tier", "live"): len(tiers),
         ("api.solve_batch", "read"): reads})
     assert not _named(call, "api.resolve")
-    assert call.counters == {"api.lanes": 8}
+    # each trip one pass over A and one sub-insert (picks 1)
+    trips = int(rep.iter.max())
+    assert call.counters == {"api.lanes": 8, "omp.passes": trips,
+                             "omp.sub_inserts": trips}
 
 
 def test_solve_records_the_per_lane_core(problem):
@@ -164,8 +168,14 @@ def test_a_missed_certificate_records_the_resolve(problem, entry, lanes,
     # the core's first pass reads the bf16 copy, its "high" re-solve
     # does not; the driver takes no per-lane operator
     copy_lanes = {"api.bf16_copy_lanes": 1} if entry == "solve" else {}
+    # the driver's trips, of both runs, each count a pass and a sub-insert;
+    # the per-lane core counts neither
+    trips = len(_named(call, "solvers.iter"))
+    passes = ({"omp.passes": trips, "omp.sub_inserts": trips}
+              if entry == "solve_batch" else {})
     assert call.counters == {"api.lanes": lanes,
-                             "api.resolved_lanes": lanes, **copy_lanes}
+                             "api.resolved_lanes": lanes, **copy_lanes,
+                             **passes}
     whats = collections.Counter(s.attrs["what"]
                                 for s in _named(call, "solvers.sync"))
     # the first solve's two reads, and the re-solve's on the single route
