@@ -295,8 +295,9 @@ def check_k1(dev, card, m=M, n=N):
     check(bool(torch.isfinite(Q).all()), "K1: non-finite output")
     check(err <= limit, f"K1: max |Q - twin| = {err} > {limit}")
     check(torch.equal(Q, K1.normal_matvec_fused_bf16(A16, D)),
-          "K1: two runs on the same inputs differ (it uses no split-K and "
-          "no atomics, so each output is one fixed-order sum)")
+          "K1: two runs on the same inputs differ (it uses no atomics and "
+          "sums split ranges in a fixed order, so each output is one "
+          "fixed-order sum)")
     ms = time_ms(lambda: K1.normal_matvec_fused_bf16(A16, D))
     plain = time_ms(lambda: K1.normal_matvec_fused_bf16_plain(A16, D))
     # the library yardstick: two bf16 cuBLAS products, P = D16·A16ᵀ then
@@ -307,15 +308,19 @@ def check_k1(dev, card, m=M, n=N):
     flops = 4 * BATCH * m * n
     b_ms, b_by = bound(flops, m * n * 2 + 2 * BATCH * n * 4, 989e12)
     plan = K1.k1_launch_plan(BATCH, m, n)
+    check(plan.route == "wgmma", f"K1 at {m}x{n} plans the {plan.route} "
+          "route, not TMA -> wgmma")
     phase(f"K1 normal_matvec_fused_bf16 b={BATCH} m={m} n={n}: max|err| "
           f"{err:.3e} <= {limit:.3e} (1e-3*max|Q|), repeat run "
           f"bit-identical; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
           f"TFLOP/s, {100 * b_ms / ms:.1f}% of its bound, "
           f"{ms / library:.2f}x the two bf16 matmuls), twin {plain:.4f} ms, "
           f"two bf16 matmuls {library:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-          f"ring tile {'x'.join(map(str, plan.tile))}, {plan.stages} "
-          f"stages, {plan.threads} threads, {plan.smem_bytes} B shared, "
-          f"grids {plan.grid1} and {plan.grid2} [{card}]")
+          f"{plan.route} route, tiles {'x'.join(map(str, plan.tile))} and "
+          f"{'x'.join(map(str, plan.tile2))}, pass 1 in {plan.splits} "
+          f"range(s) of {plan.chunk}, {plan.kernels} launches, "
+          f"{plan.stages} stages, {plan.threads} threads, {plan.smem_bytes} "
+          f"B shared, grids {plan.grid1} and {plan.grid2} [{card}]")
     return result(err, ms, plain, library, b_ms, b_by)
 
 
@@ -937,7 +942,9 @@ def run_path(name, solver, Y, dev, card, max_iter, kernels,
     phase(f"{name}: solve_batch {m}x{n} k={k} batch={BATCH} "
           f"tol={TOL} max_iter={max_iter} certified: first call "
           f"{first:.3f} s (Gram or transposed copy included); launches "
-          f"{launches}")
+          f"{launches}, K1 on its ring {dispatch.fallbacks}")
+    check(not any(dispatch.fallbacks.values()),
+          f"{name}: K1 fell back to its ring {dispatch.fallbacks}")
     for kname, count in launches.items():
         if kname in kernels:
             check(count > 0, f"{name} never launched kernel {kname}")

@@ -28,15 +28,17 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "sparse_solvers_tpu_torch"
 SOURCES = ("normal_bf16.cu", "scan.cu", "transition.cu", "omp_insert.cu",
            "fused_corr.cu")
-HEADERS = ("tile_gemm.cuh",)
+HEADERS = ("tile_gemm.cuh", "wgmma_gemm.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argument types (every pointer and the stream as void*)
 _SIGNATURES = {
-    # D, A16, D16 and P scratches, Q, b, m, n, stream
-    "ss_normal_matvec_bf16": (_P,) * 5 + (_I, _I, _I, _P),
+    # D, A16, D16 and P scratches, Q, b, m, n, wgmma, batch tile, column
+    # tiles and pass 1's splits and chunk (bm, bn1, splits, chunk, bn2),
+    # stream
+    "ss_normal_matvec_bf16": (_P,) * 5 + (_I,) * 8 + (_P,),
     # q, c, mask, c_inf, x_act, d_act, indices, gamma, idx, b, n, K,
     # threads, splits, chunk, vec, stream
     "ss_find_max_gamma": (_P,) * 9 + (_I,) * 7 + (_P,),

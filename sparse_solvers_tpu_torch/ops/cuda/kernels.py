@@ -6,12 +6,15 @@ iteration.
 
 Port of ``sparse_solvers_tpu/ops/pallas/kernels.py::normal_matvec_fused_bf16``
 (the Pallas kernel at :160-241). The CUDA form is ``csrc/normal_bf16.cu``:
-D rounded to bf16 into a (b, n) scratch, then two launches of one bf16
-tensor-core tile GEMM fed by a cp.async ring, P = bf16(D16·A16ᵀ) into a
-(b, m) bf16 scratch, then Q = P·A16 in f32 (the file's header says why the
-TPU kernel's one-pass, output-resident decomposition does not carry over,
-and what bounds the kernel on the H100). ``k1_launch_plan`` gives the
-launch geometry the wrapper checks.
+D rounded to bf16 into a (b, n) scratch, then two bf16 tensor-core GEMM
+passes, P = bf16(D16·A16ᵀ) into a (b, m) bf16 scratch, then Q = P·A16 in
+f32 (the file's header says why the TPU kernel's one-pass, output-resident
+decomposition does not carry over, and what bounds the kernel on the
+H100). ``k1_launch_plan`` picks the route and its geometry, which the C
+entry takes as they are: the warp-specialised TMA → wgmma GEMM of
+``csrc/wgmma_gemm.cuh`` wherever TMA can describe the operands, else the
+cp.async ring of ``csrc/tile_gemm.cuh``, counted in
+``dispatch.fallbacks``.
 
 ``normal_matvec_fused_bf16_plain`` is its twin: the same roundings in
 plain PyTorch, fp32 products with TF32 off. A bare bf16 ``torch.matmul``
@@ -48,19 +51,37 @@ NAME = "normal_matvec_fused_bf16"
 K5_NAME = "normal_matvec_fused"
 K6_NAME = "residual_correlation_fused"
 
-# K1's ring tile GEMM; csrc/tile_gemm.cuh's namespace ring states the same
-# constants (tests/test_torch_k1_plan.py holds the two together)
+# K1's ring tile GEMM (the fallback route); csrc/tile_gemm.cuh's namespace
+# ring states the same constants (tests/test_torch_k1_plan.py holds the two
+# together)
 K1_TILE = (128, 64, 32)   # BM (batch lanes), BN, BK
 K1_STAGES = 4
 K1_THREADS = 256
 MAX_GRID_Y = 65535
+SM_COUNT = 132            # the H100's streaming multiprocessors
+MAX_SPLITS = 16           # depth ranges a pass splits into at most
+# K1's TMA -> wgmma GEMM; csrc/wgmma_gemm.cuh's namespace wg states the
+# first three and instantiates each pair of the two tile sets
+K1_WG_BK = 64             # a slice: one 128-byte swizzled row of bf16
+K1_WG_STAGES = 4
+K1_WG_THREADS = 384       # a producer and two consumer warpgroups
+K1_WG_BATCH_TILES = (128, 256)   # BM: 64-row slabs, one or two a consumer
+K1_WG_COL_TILES = (64, 128)      # BN
+K1_WG_MIN_SPLIT = 16      # slices a split range holds at least
 
 
 @dataclasses.dataclass(frozen=True)
 class K1Plan:
-    """K1's launches for one (b, m, n): two passes of the ring tile GEMM
-    (grids (x, y), batch tiles along x) and the bf16 scratch shapes."""
-    tile: tuple[int, int, int]
+    """K1's launches for one (b, m, n): the round of D, then pass 1 P (b,
+    m) = D16·A16ᵀ on tiles ``tile`` over grid ``grid1`` (x batch tiles, y
+    column tiles) times ``splits`` depth ranges of ``chunk`` (split z covers
+    [z·chunk, min(n, (z+1)·chunk)), its f32 partials in Q's storage, then
+    summed into P), then pass 2 Q (b, n) = P·A16 on tiles ``tile2`` over
+    ``grid2``. ``route``: "wgmma" (``csrc/wgmma_gemm.cuh``) or "ring"
+    (``csrc/tile_gemm.cuh``'s ring, one tile, never split).
+    ``smem_bytes``: the larger pass's dynamic shared memory."""
+    route: str
+    tile: tuple[int, int, int]    # pass 1's BM (batch lanes), BN, BK
     stages: int
     threads: int
     grid1: tuple[int, int]    # P (b, m) = D16·A16ᵀ
@@ -68,21 +89,86 @@ class K1Plan:
     smem_bytes: int
     d16_shape: tuple[int, int]
     p_shape: tuple[int, int]
+    tile2: tuple[int, int, int]   # pass 2's
+    splits: int = 1
+    chunk: int = 0
+
+    @property
+    def kernels(self) -> int:
+        """Launches a call makes: the round, the passes and, where pass 1
+        splits, the sum of its ranges."""
+        return 3 + (self.splits > 1)
 
 
-def k1_launch_plan(b: int, m: int, n: int) -> K1Plan:
-    """The launch geometry of K1 at (b, m, n); raises ValueError where a
+def _wg_smem(bm: int, bn: int) -> int:
+    """wgmma_gemm.cuh's Tile::SMEM_BYTES: the ring of L and R slices and
+    1024 bytes to align it for the 128-byte swizzle."""
+    return K1_WG_STAGES * (bm + bn) * K1_WG_BK * 2 + 1024
+
+
+def _wg_pass(tiles_x: int, cols: int, slices: int,
+             max_splits: int) -> tuple[int, int, int]:
+    """(BN, S, slices per range) for one wgmma pass of ``tiles_x`` batch
+    tiles by ``cols`` output columns over a depth of ``slices`` slices: the
+    least work for the busiest SM, BN·(slices a range)·⌈blocks / SM_COUNT⌉,
+    then the wider tile (fewer reads of the batch tile), then the fewer
+    splits; no range is empty."""
+    best = None
+    for bn in K1_WG_COL_TILES:
+        blocks = tiles_x * -(-cols // bn)
+        for s in range(1, max_splits + 1):
+            per = -(-slices // s)
+            if -(-slices // per) != s:
+                continue
+            key = (bn * per * -(-blocks * s // SM_COUNT), -bn, s)
+            if best is None or key < best[0]:
+                best = (key, bn, s, per)
+    return best[1:]
+
+
+def k1_launch_plan(b: int, m: int, n: int, aligned: bool = True) -> K1Plan:
+    """The launch geometry of K1 at (b, m, n); ``aligned``: A16 starts on
+    16 bytes (the wrapper allocates D16, P and Q, which always do).
+
+    The wgmma route wherever TMA can describe the operands, m and n
+    multiples of 8 and ``aligned``: a batch tile of 128 lanes, or 256 where
+    b > 128 (the whole batch at b = 256, so each A16 tile is read once a
+    pass); each pass's column tile and pass 1's splits by ``_wg_pass``,
+    which fills the 132 SMs where the tiles allow. Pass 1 splits only where
+    the partials fit Q's storage (S·m ≤ n), each range holds at least
+    K1_WG_MIN_SPLIT slices, and S ≤ MAX_SPLITS: at b=256 it takes 2 ranges
+    at 4096x8192 and 8 at 2048x65536. Elsewhere the cp.async ring (an empty
+    shape too, which the wrapper never launches). Raises ValueError where a
     grid or an index would pass the card's limits."""
+    if max(b, m, n) >= 2**31:
+        raise ValueError(f"shape (b={b}, m={m}, n={n}) exceeds the "
+                         "kernel's grid")
+    if aligned and m % 8 == 0 and n % 8 == 0 and min(b, m, n) > 0:
+        bm = next((t for t in K1_WG_BATCH_TILES if b <= t),
+                  K1_WG_BATCH_TILES[-1])
+        gx = -(-b // bm)
+        slices1 = -(-n // K1_WG_BK)
+        cap = max(1, min(MAX_SPLITS, n // m, slices1 // K1_WG_MIN_SPLIT))
+        bn1, s1, per1 = _wg_pass(gx, m, slices1, cap)
+        bn2, _, _ = _wg_pass(gx, n, -(-m // K1_WG_BK), 1)
+        grid1, grid2 = (gx, -(-m // bn1)), (gx, -(-n // bn2))
+        if max(grid1[1], grid2[1]) > MAX_GRID_Y:
+            raise ValueError(f"shape (b={b}, m={m}, n={n}) exceeds the "
+                             "kernel's grid")
+        return K1Plan("wgmma", (bm, bn1, K1_WG_BK), K1_WG_STAGES,
+                      K1_WG_THREADS, grid1, grid2,
+                      max(_wg_smem(bm, bn1), _wg_smem(bm, bn2)), (b, n),
+                      (b, m), (bm, bn2, K1_WG_BK), s1, per1 * K1_WG_BK)
     bm, bn, bk = K1_TILE
     stage = 2 * (bm * (bk + 8) + max(bn * (bk + 8), bk * (bn + 8)))
     smem = max(K1_STAGES * stage, 4 * bm * (bn + 4))
     grid1 = (-(-b // bm), -(-m // bn))
     grid2 = (-(-b // bm), -(-n // bn))
-    if max(b, m, n) >= 2**31 or max(grid1[1], grid2[1]) > MAX_GRID_Y:
+    if max(grid1[1], grid2[1]) > MAX_GRID_Y:
         raise ValueError(f"shape (b={b}, m={m}, n={n}) exceeds the "
                          "kernel's grid")
-    return K1Plan(K1_TILE, K1_STAGES, K1_THREADS, grid1, grid2, smem,
-                  (b, n), (b, m))
+    return K1Plan("ring", K1_TILE, K1_STAGES, K1_THREADS, grid1, grid2, smem,
+                  (b, n), (b, m), K1_TILE, 1, n)
 
 
 # K5's and K6's tiles: csrc/fused_corr.cu's batch tiles, and csrc/
@@ -95,8 +181,6 @@ F32_STAGES = 3
 F32_THREAD_TILE = {16: (2, 8), 64: (8, 8), 128: (8, 8)}  # (TM, TN) by tile
 RING_TILE_N = {16: 64, 64: 64, 128: 128}   # the bf16 ring's BN by tile
 RING_BK, RING_STAGES = 64, 3               # and its slices (K1: 32 and 4)
-SM_COUNT = 132            # the H100's streaming multiprocessors
-MAX_SPLITS = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,7 +283,7 @@ def normal_matvec_fused_bf16(A16: torch.Tensor,
     if not (A16.is_contiguous() and D.is_contiguous()):
         raise ValueError("A16 and D must be contiguous")
     (b, n), m = D.shape, A16.shape[0]
-    plan = k1_launch_plan(b, m, n)
+    plan = k1_launch_plan(b, m, n, A16.data_ptr() % 16 == 0)
     Q = torch.empty((b, n), dtype=torch.float32, device=D.device)
     if b == 0 or n == 0:
         return Q
@@ -210,11 +294,15 @@ def normal_matvec_fused_bf16(A16: torch.Tensor,
     lib = build.library()
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream(D.device).cuda_stream
-        rc = lib.ss_normal_matvec_bf16(D.data_ptr(), A16.data_ptr(),
-                                       D16.data_ptr(), P.data_ptr(),
-                                       Q.data_ptr(), b, m, n, stream)
+        rc = lib.ss_normal_matvec_bf16(
+            D.data_ptr(), A16.data_ptr(), D16.data_ptr(), P.data_ptr(),
+            Q.data_ptr(), b, m, n, int(plan.route == "wgmma"),
+            plan.tile[0], plan.tile[1], plan.splits, plan.chunk,
+            plan.tile2[1], stream)
     build.check(rc, NAME)
     dispatch.launches[NAME] += 1
+    if plan.route == "ring":
+        dispatch.fallbacks[NAME] += 1
     return Q
 
 

@@ -12,7 +12,8 @@ tensor's device decides, per call, and nothing else does:
 
 Each wrapper adds one to ``launches[name]`` where it launches its CUDA
 kernel, and nowhere else, so a run can show that it went through the
-kernels (``chip_smoke.py`` reads the counts around each main path).
+kernels (``chip_smoke.py`` reads the counts around each main path); K1
+adds one to ``fallbacks[name]`` as well where it takes its ring route.
 """
 
 from __future__ import annotations
@@ -42,11 +43,15 @@ KERNELS = {
 }
 
 launches = dict.fromkeys(KERNELS, 0)
+# launches that took a kernel's fallback route: K1's cp.async ring where TMA
+# cannot describe the operands (``ops/cuda/kernels.py::k1_launch_plan``)
+fallbacks = {"normal_matvec_fused_bf16": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, fallbacks):
+        for name in counts:
+            counts[name] = 0
 
 
 def use_cuda_kernel(*tensors: torch.Tensor) -> bool:

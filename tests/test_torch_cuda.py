@@ -8,7 +8,13 @@ there without the suite's jax conftest:
 The shapes are ragged on purpose (n not a multiple of 8, K=13) to reach the
 kernels' masked edges, which chip_smoke.py's aligned main-path shapes do
 not; K1 also runs a ragged second batch tile (b=130), bases off 16 bytes,
-an aligned 256x512x1024 and a bit-identical repeat run. Tolerances: K1
+an aligned 256x512x1024 and a bit-identical repeat run, and on its wgmma
+route the cells' shapes at b=256, ragged batches (1, 130) with m and n
+multiples of 8 but not of a tile, repeat runs of the split route, a
+replay of a captured CUDA graph on new D, and the ring forced at aligned
+shapes and taken (and counted) for bases off 16 bytes; on integer inputs
+(every sum exact in f32) both routes equal the twin bit for bit, a second
+batch tile (b=300) and split ranges included. Tolerances: K1
 1e-3·max|Q| (a P element may land on the neighbouring bf16 value when
 the fp32 sums run in another order), K2 idx and gamma
 exact (also split across a cluster, with ties planted across its chunk
@@ -124,6 +130,136 @@ def test_k1_repeat_runs_bit_identical(dev):
     A16, D = _k1_case(dev, 512, 1024, 256)
     first = K1.normal_matvec_fused_bf16(A16, D)
     assert torch.equal(first, K1.normal_matvec_fused_bf16(A16, D))
+
+
+def _k1_close(Q, want):
+    err = float((Q - want).abs().max())
+    assert err <= 1e-3 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("m,n,b", [(4096, 8192, 256), (2048, 65536, 256)])
+def test_k1_wgmma_route_at_the_cells_shapes(dev, m, n, b):
+    """The cells' two K1 shapes take the wgmma route, pass 1 split (2 and
+    8 ranges), and never the ring."""
+    from sparse_solvers_tpu_torch.ops import dispatch
+    from sparse_solvers_tpu_torch.ops.cuda import kernels as K1
+    A16, D = _k1_case(dev, m, n, b)
+    plan = K1.k1_launch_plan(b, m, n)
+    assert plan.route == "wgmma" and plan.splits > 1
+    rings = dispatch.fallbacks[K1.NAME]
+    Q = _counted(K1.NAME, lambda: K1.normal_matvec_fused_bf16(A16, D))
+    assert dispatch.fallbacks[K1.NAME] == rings
+    _k1_close(Q, K1.normal_matvec_fused_bf16_plain(A16, D))
+
+
+@pytest.mark.parametrize("m,n,b", [
+    (72, 200, 1), (72, 200, 130),   # one lane; a 256-lane tile holding 130
+    (520, 8200, 130),               # pass 1 in 8 ranges, ragged edges
+    (64, 4096, 1)])                 # pass 1 in 4 ranges, one lane
+def test_k1_wgmma_ragged_shapes_match_twin(dev, m, n, b):
+    """Random data at ragged shapes within K1's tolerance. A second batch
+    tile (b=300) is held bit-exact by test_k1_exact_on_integer_inputs: at
+    136x1048 on these inputs both routes miss 1e-3·max|Q| by the same
+    2.062 (the tensor cores' fp32 accumulation flips more of P's bf16
+    rounds than the twin's fp32 sums; few terms in Q's sum make a flip
+    large), so the shape says nothing of either route's indexing."""
+    from sparse_solvers_tpu_torch.ops.cuda import kernels as K1
+    A16, D = _k1_case(dev, m, n, b)
+    assert K1.k1_launch_plan(b, m, n).route == "wgmma"
+    Q = _counted(K1.NAME, lambda: K1.normal_matvec_fused_bf16(A16, D))
+    assert Q.shape == (b, n)
+    _k1_close(Q, K1.normal_matvec_fused_bf16_plain(A16, D))
+
+
+@pytest.mark.parametrize("route", ["wgmma", "ring"])
+@pytest.mark.parametrize("m,n,b", [
+    (4096, 8192, 256), (2048, 65536, 256), (136, 1048, 300), (72, 200, 1),
+    (520, 8200, 130), (64, 4096, 1), (96, 256, 130)])
+def test_k1_exact_on_integer_inputs(dev, monkeypatch, route, m, n, b):
+    """A16 and D with entries in {-2, ..., 2}: every product and partial
+    sum of P and of Q is an integer below 2^24, exact in f32 in any order,
+    and P's bf16 round sees the same value, so each route (its tiles,
+    edges, split ranges and their sum) must equal the twin bit for bit."""
+    from sparse_solvers_tpu_torch.ops.cuda import kernels as K1
+    planner = K1.k1_launch_plan
+    monkeypatch.setattr(K1, "k1_launch_plan", lambda b, m, n, aligned=True:
+                        planner(b, m, n, aligned and route == "wgmma"))
+    g = torch.Generator(device=dev).manual_seed(m + n + b)
+    A16 = torch.randint(-2, 3, (m, n), generator=g, device=dev).to(
+        torch.bfloat16)
+    D = torch.randint(-2, 3, (b, n), generator=g, device=dev).float()
+    assert K1.k1_launch_plan(b, m, n).route == route
+    Q = _counted(K1.NAME, lambda: K1.normal_matvec_fused_bf16(A16, D))
+    want = K1.normal_matvec_fused_bf16_plain(A16, D)
+    assert float(want.abs().max()) < 2**24
+    assert torch.equal(Q, want)
+
+
+@pytest.mark.parametrize("m,n,b", [(2048, 65536, 256), (520, 8200, 130)])
+def test_k1_split_route_repeat_runs_bit_identical(dev, m, n, b):
+    """The split ranges are summed in a fixed order, with no atomics."""
+    from sparse_solvers_tpu_torch.ops.cuda import kernels as K1
+    A16, D = _k1_case(dev, m, n, b)
+    assert K1.k1_launch_plan(b, m, n).splits > 1
+    first = K1.normal_matvec_fused_bf16(A16, D)
+    assert torch.equal(first, K1.normal_matvec_fused_bf16(A16, D))
+
+
+@pytest.mark.parametrize("m,n,b", [(4096, 8192, 256), (2048, 65536, 256)])
+def test_k1_graph_replay_on_new_d(dev, m, n, b):
+    """K1 captured in a CUDA graph keeps its tensor maps by value, over
+    D16, P and Q in the graph's pool: replayed on new D it matches the twin
+    and equals an eager call."""
+    from sparse_solvers_tpu_torch.ops.cuda import kernels as K1
+    A16, D = _k1_case(dev, m, n, b)
+    static_D = D.clone()
+    K1.normal_matvec_fused_bf16(A16, static_D)    # built and warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_Q = K1.normal_matvec_fused_bf16(A16, static_D)
+    g = torch.Generator(device=dev).manual_seed(7)
+    for _ in range(2):
+        new = torch.randn(D.shape, generator=g, device=dev)
+        static_D.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        _k1_close(static_Q, K1.normal_matvec_fused_bf16_plain(A16, new))
+        assert torch.equal(static_Q, K1.normal_matvec_fused_bf16(A16, new))
+
+
+@pytest.mark.parametrize("m,n,b", [(512, 1024, 256), (96, 256, 130),
+                                   (2048, 65536, 256)])
+def test_k1_ring_forced_at_aligned_shapes_matches_twin(dev, monkeypatch,
+                                                       m, n, b):
+    """The ring stays K1's fallback: forced where the wgmma route would
+    run, it still matches the twin, and the wrapper counts it."""
+    from sparse_solvers_tpu_torch.ops import dispatch
+    from sparse_solvers_tpu_torch.ops.cuda import kernels as K1
+    planner = K1.k1_launch_plan
+    monkeypatch.setattr(K1, "k1_launch_plan",
+                        lambda b, m, n, aligned=True: planner(b, m, n, False))
+    A16, D = _k1_case(dev, m, n, b)
+    rings = dispatch.fallbacks[K1.NAME]
+    Q = _counted(K1.NAME, lambda: K1.normal_matvec_fused_bf16(A16, D))
+    assert dispatch.fallbacks[K1.NAME] == rings + 1
+    _k1_close(Q, K1.normal_matvec_fused_bf16_plain(A16, D))
+
+
+@pytest.mark.parametrize("m,n,b,offset", [(4096, 8192, 256, 1),
+                                          (96, 256, 130, 3)])
+def test_k1_unaligned_bases_take_the_ring(dev, m, n, b, offset):
+    """m and n allow TMA, but A16 starts off 16 bytes: the plan takes the
+    ring and the wrapper raises its count."""
+    from sparse_solvers_tpu_torch.ops import dispatch
+    from sparse_solvers_tpu_torch.ops.cuda import kernels as K1
+    A16, D = _k1_case(dev, m, n, b, offset)
+    assert A16.data_ptr() % 16 != 0
+    assert K1.k1_launch_plan(b, m, n, False).route == "ring"
+    rings = dispatch.fallbacks[K1.NAME]
+    Q = _counted(K1.NAME, lambda: K1.normal_matvec_fused_bf16(A16, D))
+    assert dispatch.fallbacks[K1.NAME] == rings + 1
+    _k1_close(Q, K1.normal_matvec_fused_bf16_plain(A16, D))
 
 
 @pytest.mark.parametrize("n", [200, 384])
@@ -663,8 +799,9 @@ def _device_events(prof):
 def test_spans_share_the_profilers_clock_on_card(dev):
     """Under the CUDA-only profiler the benchmark traces with, a span
     records, and it contains the device interval of the K1 launch it
-    issued and waited for, to within 50 us at each end: spans and device
-    operations lie on one clock."""
+    issued and waited for (its plan's kernels: here pass 1 splits, so
+    four), to within 50 us at each end: spans and device operations lie
+    on one clock."""
     from sparse_solvers_tpu_torch.ops.cuda import kernels as K1
     from sparse_solvers_tpu_torch.utils import profiling
     g = torch.Generator(device=dev).manual_seed(5)
@@ -683,7 +820,7 @@ def test_spans_share_the_profilers_clock_on_card(dev):
     kernels = [e for e in _device_events(prof)
                if "gemm_bf16_async_kernel" in e[0]
                or "round_to_bf16_kernel" in e[0]]
-    assert len(kernels) == 3, kernels
+    assert len(kernels) == K1.k1_launch_plan(256, 2048, 4096).kernels == 4
     slack = 50_000
     assert span.start_ns - slack <= min(e[1] for e in kernels)
     assert max(e[2] for e in kernels) <= span.end_ns + slack
@@ -971,7 +1108,7 @@ def test_traced_call_sees_the_graphs_kernels(dev, warm):
     """Under the CUDA-only profiler the benchmark traces with, a
     ``solve_batch`` at "default" (K1's precision, no certificate to
     re-solve) shows K1, K2 and K3 once a trip: one K2 and one K3 a
-    ``solvers.iter`` span, three K1 kernels (two ring GEMMs and the
+    ``solvers.iter`` span, three K1 kernels (two GEMM passes and the
     rounding) a trip. After a warm call (``warm``) every trip replays the
     graphs the façade kept from it, captured before the profiler started:
     a replay a trip, a reuse a tier, no capture. A first call captures

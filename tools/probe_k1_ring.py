@@ -3,6 +3,13 @@ and in probe forms that leave one part of the work out or deepen the ring.
 
     python3 tools/probe_k1_ring.py
 
+The ring is K1's fallback route since the TMA → wgmma GEMM
+(``csrc/wgmma_gemm.cuh``) took every shape TMA can describe, the cells'
+shapes among them; this probe forces the ring
+(``k1_launch_plan(..., aligned=False)``) to time it at the main shape. Its
+finding, that the copies alone took 0.2042 ms of 0.2512, is what the wgmma
+route's design answers.
+
 Each form, in a process of its own, is a copy of
 ``sparse_solvers_tpu_torch/csrc`` under ``build/k1_probe/`` with one edit
 to ``tile_gemm.cuh``'s ring kernel, built and loaded in place of the
@@ -97,6 +104,8 @@ def part_ms(A16, D, calls: int = 10) -> dict:
 def run_form(name: str, card: str) -> None:
     """Build the form, check it (as built only) and print its times."""
     build.CSRC = form_sources(name, FORMS[name])  # before the first load
+    planner = K1.k1_launch_plan
+    K1.k1_launch_plan = lambda b, m, n, aligned=True: planner(b, m, n, False)
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(1)
     A = torch.randn(M, N, generator=g, device=dev)

@@ -6,8 +6,8 @@ trees.
         [--kernels k1,k2,k3,k3routes,k4,k5,k6]
 
 Loads ``sparse_solvers_tpu_torch`` from DIR (default: this checkout),
-builds its kernels and prints one line per case: K1 at b=256, m=4096,
-n=8192, K2 at b=256, n=8192 at each Homotopy tier, K3 at b=256 at each
+builds its kernels and prints one line per case: K1 at b=256 at m=4096,
+n=8192 and at the gram-free shape m=2048, n=65536, K2 at b=256, n=8192 at each Homotopy tier, K3 at b=256 at each
 capacity of ``chip_smoke.py``'s K3 phases (each mix at its capacities;
 the event time and, through the wrapper, the device time of the kernels
 whose names hold "transition"), K3 on each route that can run it at
@@ -122,12 +122,16 @@ def main() -> int:
     wanted = args.kernels.split(",")
     tag = f"[{root.name}; {card}]"
     if "k1" in wanted:
-        g = torch.Generator(device=dev).manual_seed(1)
-        A = torch.randn(smoke.M, smoke.N, generator=g, device=dev)
-        A16 = (A / A.norm(dim=0)).to(torch.bfloat16)
-        D = torch.randn(smoke.BATCH, smoke.N, generator=g, device=dev)
-        ms = smoke.time_ms(lambda: K.normal_matvec_fused_bf16(A16, D))
-        print(f"K1 b={smoke.BATCH}: {ms:.4f} ms {tag}", flush=True)
+        for m, n in ((smoke.M, smoke.N), smoke.GF_SHAPE[:2]):
+            g = torch.Generator(device=dev).manual_seed(1)
+            A = torch.randn(m, n, generator=g, device=dev)
+            A16 = (A / A.norm(dim=0)).to(torch.bfloat16)
+            del A
+            D = torch.randn(smoke.BATCH, n, generator=g, device=dev)
+            ms = smoke.time_ms(lambda: K.normal_matvec_fused_bf16(A16, D))
+            print(f"K1 b={smoke.BATCH} m={m} n={n}: {ms:.4f} ms {tag}",
+                  flush=True)
+            del A16, D
     if "k2" in wanted:
         from sparse_solvers_tpu_torch.ops.cuda import scan as K2
         for k in smoke.SCAN_TIERS:
